@@ -10,7 +10,10 @@ Phases, in order; any failure raises and the script exits nonzero:
   2. build the align-reduce kernel from pfann_tpu_torch/csrc/ with nvcc.
   3. kernel against its plain PyTorch version on the card: bf16 and f32;
      pad 32 with S in {19, 24, 32} and pad 128 with S = 119; B in
-     {1, 100, 1024}; ~1k songs of 40-120 rows at d = 128.
+     {1, 100, 1024}; ~1k songs of 40-120 rows at d = 128.  Then the int8
+     variant against its plain version, bitwise: the same corpus pooled
+     and quantized as the screened engine's stage 1 sees it (k = 4),
+     Sc in {5, 6, 8, 30}, B in {1, 100, 1024}.
   4. the serving scenario of bench.py: 10,000 songs x 120 rows, d = 128,
      bf16, S = 19, 1,024 noisy self-queries; recall must be 1024/1024.
      Times the kernel against the plain version at B = 1024 and at the
@@ -19,10 +22,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      corpus, a flagship-width model (configs/default.json: d=128, h=1024,
      u=32, fuller) with random weights from a seed, saved with the port's
      writer; pfann_tpu_torch.builder, then pfann_tpu_torch.matcher in
-     default and --top1 mode on 16 hop-aligned 10 s crops.
+     default and --top1 mode on 16 hop-aligned 10 s crops.  Then the same
+     DB served by the screened engine (configs.json indexer screen: true,
+     int8 stage 1, top 64 of 64 songs): both TSVs must equal the align
+     engine's byte for byte.
+  6. the screened engine at bench.py --scale 100000: 100,000 songs x 120
+     rows, d = 128, k = 4, top_m = 32, bf16 exact layout, int8 stage 1,
+     rescue 0.4.  1,024 clean queries (recall 1024/1024), 256 noisy ones
+     (some escalate; answers equal the exhaustive engine's where its top-1
+     margin is clear), the int8 kernel against its plain version on the
+     coarse copy, and the same corpus with an int8 exact layout.
 
-The line before the last is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.
+Each path (phase 5's two engines, phase 6's batches) is driven with the
+kernel's launch counts set to 0 just before it and read just after.  The
+line before the last is a JSON object describing each kernel; the last
+line is {"ok": true, "device": {...}}.
 """
 
 import csv
@@ -52,9 +66,17 @@ from pfann_tpu_torch.index.align import (  # noqa: E402
 from pfann_tpu_torch.index.align_kernel import (  # noqa: E402
     align_reduce,
     align_reduce_reference,
+    reset_launch_counts,
 )
 from pfann_tpu_torch.index.database import Database  # noqa: E402
 from pfann_tpu_torch.index.embedder import Embedder  # noqa: E402
+from pfann_tpu_torch.index.screen import (  # noqa: E402
+    ScreenedAlignmentEngine,
+    build_screen_layout,
+    collapse_queries,
+    quantize_coarse_int8,
+    quantize_queries_int8,
+)
 from pfann_tpu_torch.models.fp_network import build_fp_network  # noqa: E402
 from pfann_tpu_torch.utils.checkpoint import save_model  # noqa: E402
 
@@ -116,6 +138,24 @@ def compare(db, q, R, S, n_songs):
     return err, len(bad), (kb, ko)
 
 
+def compare_exact(db, q, R, S, n_songs):
+    """int8 kernel vs plain version on the same card tensors: best and
+    argoff must be bitwise equal (both sums are exact).  Returns max
+    |best diff| (0.0)."""
+    kb, ko = align_reduce(db, q, R, S, n_songs)
+    pb, po = align_reduce_reference(db, q, R, S, n_songs)
+    torch.cuda.synchronize()
+    err = float((kb - pb).abs().max()) if kb.numel() else 0.0
+    if not (torch.equal(kb, pb) and torch.equal(ko, po)):
+        raise AssertionError("int8 kernel differs from its plain version: max|dbest| "
+                             "%g, %d argoffs" % (err, int((ko != po).sum())))
+    return err
+
+
+def launched(dtype):
+    return align_reduce.launches_by_dtype[dtype]
+
+
 def self_queries(rng, db_np, R, n_songs, S, B, d, noise=0.1):
     """Noisy windows of the layout itself, renormalised (bench.py style)."""
     q = np.zeros((B, S, d), np.float32)
@@ -143,6 +183,131 @@ def make_song(rng, n_sec, sr=8000):
             )
     x /= np.max(np.abs(x)) * 1.2
     return x.astype(np.float32)
+
+
+def screen_scenario(dev, card) -> dict:
+    """Phase 6: the screened engine at 100k songs (bench.py --scale 100000
+    with an int8 stage 1).  Returns the int8 kernel's numbers for the
+    kernels line and the launches of the runs it drove."""
+    phase(6, "screened engine: 100k songs x 120 rows, d=128, k=4, top_m=32, "
+             "bf16 exact layout, int8 stage 1, rescue 0.4")
+    n_songs, per, d, S, B, k = 100_000, 120, 128, 19, 1024, 4
+    tm = time.time()
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((n_songs * per, d), dtype=np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    counts = np.full(n_songs, per)
+    gen_s = time.time() - tm
+
+    def batch(seed, n, noise):
+        r = np.random.default_rng(seed)
+        src, off = r.integers(0, n_songs, size=n), r.integers(0, per - S, size=n)
+        f = emb[(src * per + off)[:, None] + np.arange(S)]
+        f += noise * r.standard_normal(f.shape, dtype=np.float32)
+        f /= np.linalg.norm(f, axis=2, keepdims=True)
+        return f, src, off
+
+    kw = dict(pad=32, k=k, top_m=32, score_dtype=torch.bfloat16, coarse_dtype="int8",
+              device=dev, rescue_threshold=0.4)
+    tm = time.time()
+    eng = ScreenedAlignmentEngine(emb, counts, **kw)
+    torch.cuda.synchronize()
+    print("  corpus %.1f s; engine build %.1f s: R=%d Rc=%d n_pad=%d, resident %.1f MB "
+          "(bf16 exact layout %.1f MB + int8 coarse copy %.1f MB)" % (
+              gen_s, time.time() - tm, eng.R, eng.Rc, eng.n_pad, eng.resident_bytes() / 1e6,
+              eng._db3.numel() * 2 / 1e6, eng._coarse.numel() / 1e6), flush=True)
+
+    # 1,024 clean queries through the serving call
+    f, src, off = batch(1, B, 0.1)
+    eng.search_top1(f[:64])  # first calls: sort and cuBLAS set-up
+    reset_launch_counts()
+    esc0 = eng.escalated
+    song, _, t = eng.search_top1(f)
+    torch.cuda.synchronize()
+    n8, n16 = launched(torch.int8), launched(torch.bfloat16)
+    esc_clean = eng.escalated - esc0
+    hits, right = int((song == src).sum()), int((t == off).sum())
+    print("  clean batch: recall %d/%d, offsets right %d/%d, escalated %d, launches "
+          "int8 %d bf16 %d" % (hits, B, right, B, esc_clean, n8, n16), flush=True)
+    if n8 <= 0:
+        raise AssertionError("the screened path never launched the int8 kernel")
+    if hits != B or right != B:
+        raise AssertionError("screened recall %d/%d, offsets %d/%d" % (hits, B, right, B))
+    batch_ms = time_ms(lambda: eng.search_top1(f), 3)
+    lens = np.full(B, S)
+    bare_ms = time_ms(lambda: eng.search_top1_device(f, lens, rescued=False), 3)
+    gated_ms = time_ms(lambda: eng.search_top1_device(f, lens), 3)
+    qd = torch.from_numpy(f).to(dev)
+    qc8 = quantize_queries_int8(collapse_queries(qd, k))
+    Sc = qc8.shape[1]
+    s1_ms = time_ms(lambda: align_reduce(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad), 5)
+    err8 = compare_exact(eng._coarse, qc8[:64].contiguous(), eng.Rc, Sc, eng.n_pad)
+    s1_plain_ms = time_ms(
+        lambda: align_reduce_reference(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad), 1)
+    best_c = align_reduce(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad)[0]
+    sort_ms = time_ms(lambda: torch.sort(best_c, dim=1, descending=True, stable=True), 3)
+    del best_c
+    torch.cuda.empty_cache()
+    print("  search_top1 %.4f s/batch = %.1f queries/s; stages 1+2 on the device %.3f ms, "
+          "with the stage-3 gate (one sync) %.3f ms; int8 stage-1 launch (Sc=%d) %.3f ms, "
+          "its plain version %.3f ms; top-M stable sort of [%d, %d] %.3f ms; int8 kernel "
+          "== plain on 64 queries, bitwise  %s" % (
+              batch_ms / 1e3, B / (batch_ms / 1e3), bare_ms, gated_ms, Sc, s1_ms,
+              s1_plain_ms, B, eng.n_pad, sort_ms, card), flush=True)
+
+    # 256 noisy queries: the winner-drop regime; stage 3 must escalate some
+    fn, srcn, _ = batch(2, 256, 0.46)
+    reset_launch_counts()
+    esc0 = eng.escalated
+    song_n, _, t_n = eng.search_top1(fn)
+    torch.cuda.synchronize()
+    esc_noisy = eng.escalated - esc0
+    n8 += launched(torch.int8)
+    n16 += launched(torch.bfloat16)
+    if esc_noisy < 1 or launched(torch.bfloat16) < 1:
+        raise AssertionError("the noisy batch escalated %d queries" % esc_noisy)
+    noisy_ms = time_ms(lambda: eng.search_top1(fn), 1)
+    del eng, qd, qc8
+    torch.cuda.empty_cache()
+    full = AlignmentEngine(emb, counts, score_dtype=torch.bfloat16, device=dev)
+    (fb, fo), = full.search_device(fn)
+    top2 = fb.topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > BEST_ATOL).cpu().numpy()
+    fsong, _, ft = (x.cpu().numpy() for x in _top1(fb, fo, full.pad))
+    same = (song_n == fsong) & (t_n == ft)
+    if not same[clear].all():
+        raise AssertionError("noisy batch: %d answers differ from the exhaustive "
+                             "engine's where its margin is clear" % int((~same[clear]).sum()))
+    full_ms = time_ms(lambda: full.search_top1(fn), 1)
+    print("  noisy batch (noise 0.46, 256 queries): escalated %d, answers == exhaustive "
+          "on %d/%d with a clear margin (%d/256 equal in all), right song %d/256; "
+          "screened %.3f ms, exhaustive %.3f ms  %s" % (
+              esc_noisy, int(same[clear].sum()), int(clear.sum()), int(same.sum()),
+              int((song_n == srcn).sum()), noisy_ms, full_ms, card), flush=True)
+    del full, fb, fo
+    torch.cuda.empty_cache()
+
+    # the same corpus with an int8 exact layout
+    tm = time.time()
+    eng8 = ScreenedAlignmentEngine(emb, counts, exact_dtype="int8", **kw)
+    torch.cuda.synchronize()
+    build8_s = time.time() - tm
+    reset_launch_counts()
+    song8, _, t8 = eng8.search_top1(f)
+    n8 += launched(torch.int8)
+    hits8, right8 = int((song8 == src).sum()), int((t8 == off).sum())
+    if hits8 != B or right8 != B:
+        raise AssertionError("int8 exact layout: recall %d/%d, offsets %d/%d"
+                             % (hits8, B, right8, B))
+    ms8 = time_ms(lambda: eng8.search_top1(f), 3)
+    print("  int8 exact layout: build %.1f s, resident %.1f MB, recall %d/%d, offsets "
+          "right %d/%d, %.4f s/batch = %.1f queries/s  %s" % (
+              build8_s, eng8.resident_bytes() / 1e6, hits8, B, right8, B, ms8 / 1e3,
+              B / (ms8 / 1e3), card), flush=True)
+    del eng8
+    torch.cuda.empty_cache()
+    return {"launches_int8": n8, "launches_bf16": n16, "max_abs_err": err8,
+            "ms": s1_ms, "plain_ms": s1_plain_ms}
 
 
 def main() -> None:
@@ -199,6 +364,27 @@ def main() -> None:
                               str(dtype).split(".")[1], pad, S, B, k_ms, p_ms,
                               err, nbad, card), flush=True)
             del db
+    torch.cuda.empty_cache()
+    # the int8 variant on the same corpus, pooled and quantized as stage 1
+    # of the screened engine sees it: Sc = ceil(S / 4) in {5, 6, 8, 30}
+    int8_err = 0.0
+    for pad, S_list in ((32, (19, 24, 32)), (128, (119,))):
+        db3, coarse, R, Rc, n_pad = build_screen_layout(emb, counts, pad=pad, k=4, d=d)
+        c8 = torch.from_numpy(quantize_coarse_int8(coarse)).to(dev)
+        flat = db3.reshape(-1, d)
+        for S in S_list:
+            q_all, _ = self_queries(rng, flat, R, n_pad, S, 1024, d)
+            qc8 = quantize_queries_int8(
+                collapse_queries(torch.from_numpy(q_all).to(dev), 4))
+            Sc = qc8.shape[1]
+            for B in (1, 100, 1024):
+                q = qc8[:B].contiguous()
+                int8_err = max(int8_err, compare_exact(c8, q, Rc, Sc, n_pad))
+                k_ms = time_ms(lambda: align_reduce(c8, q, Rc, Sc, n_pad), 3)
+                p_ms = time_ms(lambda: align_reduce_reference(c8, q, Rc, Sc, n_pad), 1)
+                print("  int8     pad %3d Sc %3d B %4d: kernel %9.3f ms  plain %9.3f ms"
+                      "  bitwise equal  %s" % (pad, Sc, B, k_ms, p_ms, card), flush=True)
+        del c8, db3, coarse, flat
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4
@@ -296,7 +482,7 @@ def main() -> None:
         res = os.path.join(tmp, "out", "result.txt")
         res1 = os.path.join(tmp, "out", "result_top1.txt")
 
-        align_reduce.launches = 0
+        reset_launch_counts()
         tm = time.time()
         builder.main(["builder", lst, db_dir, model_dir, "--device", "cuda"])
         build_s = time.time() - tm
@@ -305,7 +491,7 @@ def main() -> None:
         matcher.main(["matcher", qlist, db_dir, res1, "--top1", "--device", "cuda"])
         torch.cuda.synchronize()
         match_s = time.time() - tm
-        launches = align_reduce.launches
+        launches = launched(torch.bfloat16) + launched(torch.float32)
         print("  builder %.2f s, matcher x2 %.2f s, kernel launches %d  %s" % (
             build_s, match_s, launches, card))
         if launches <= 0:
@@ -364,6 +550,41 @@ def main() -> None:
             raise AssertionError("no query had a clear top-1 margin to check")
         print("  matcher answers == plain-version answers on %d/16 queries with a "
               "clear margin; kernel vs plain max|dbest| %.2e" % (agree, err))
+        del db, eng, emb_q
+
+        # the same DB through the screened engine: top 64 of 64 songs makes
+        # the screen a reordering, so the answers are the align engine's
+        cfg_path = os.path.join(db_dir, "configs.json")
+        with open(cfg_path) as fh:
+            params = json.load(fh)
+        params["indexer"].update(screen=True, screen_coarse_dtype="int8", screen_top_m=64)
+        with open(cfg_path, "w") as fh:
+            json.dump(params, fh, indent=2)
+        res_s = os.path.join(tmp, "out", "result_screen.txt")
+        res_s1 = os.path.join(tmp, "out", "result_screen_top1.txt")
+        reset_launch_counts()
+        tm = time.time()
+        matcher.main(["matcher", qlist, db_dir, res_s, "--device", "cuda"])
+        matcher.main(["matcher", qlist, db_dir, res_s1, "--top1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        screen_s = time.time() - tm
+        launches_int8 = launched(torch.int8)
+        screen_bf16 = launched(torch.bfloat16)
+        launches += screen_bf16
+        print("  screened matcher x2 %.2f s, int8 launches %d, bf16 (rescue) launches "
+              "%d  %s" % (screen_s, launches_int8, screen_bf16, card))
+        if launches_int8 <= 0:
+            raise AssertionError("the screened matcher never launched the int8 kernel")
+        want = open(res, "rb").read()
+        for path in (res_s, res_s1):
+            if open(path, "rb").read() != want:
+                raise AssertionError("%s differs from the align engine's TSV"
+                                     % os.path.basename(path))
+        print("  screened TSVs (default, --top1) == the align engine's TSV")
+
+    shot = screen_scenario(dev, card)
+    launches_int8 += shot["launches_int8"]
+    launches += shot["launches_bf16"]
 
     print(json.dumps({"kernels": [{
         "name": "align_reduce",
@@ -374,6 +595,15 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "align_reduce_int8",
+        "route": "cuda",
+        "source": "pfann_tpu_torch/csrc/align_reduce.cu",
+        "replaces": "pfann_tpu/index/pallas_align.py:49",
+        "launches": launches_int8,
+        "max_abs_err": max(int8_err, shot["max_abs_err"]),
+        "ms": shot["ms"],
+        "plain_ms": shot["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,10 @@ construction.
 hand-written align-reduce kernel (``index/align_kernel.py``), on CPU
 tensors the plain PyTorch version.  One layout (``trailing_pad=True``)
 serves both; the kernel reads rows >= N as zero, and takes any S up to
-the layout pad and any batch size.
+the layout pad and any batch size.  int8 layouts and queries (the
+screened engine's coarse stage and int8 exact layout, ``index/screen.py``)
+take the kernel's int32 path, as the JAX int8 branch does
+(``pfann_tpu/index/align.py:175-182``).
 
 ``score_alpha != 0`` (exp(-alpha (1 - ip)^2) per window before the sum)
 needs the per-window score slices: it runs on the plain path on CPU and
@@ -58,13 +61,19 @@ def build_uniform_layout(
     R = pad + lmax
     total = max(n_songs, 1) * R + (pad if trailing_pad else 0)
     db = np.zeros((total, d), dtype=np.float32)
-    song_pos = np.pad(np.cumsum(counts, dtype=np.int64), (1, 0))
-    counts = np.asarray(counts, dtype=np.int64)
-    if n_songs and song_pos[-1]:
-        song_of = np.repeat(np.arange(n_songs, dtype=np.int64), counts)
-        intra = np.arange(song_pos[-1], dtype=np.int64) - song_pos[song_of]
-        db[song_of * R + pad + intra] = embeddings
+    if embeddings.size:
+        db[song_rows(counts, R, pad)] = embeddings
     return db, R
+
+
+def song_rows(counts: np.ndarray, R: int, pad: int) -> np.ndarray:
+    """Layout row of every embedding row, in order: row j of song s lands
+    at s*R + pad + j (vectorized; a per-song loop is minutes at 100k
+    songs)."""
+    counts = np.asarray(counts, dtype=np.int64)
+    song_of = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    start = np.pad(np.cumsum(counts), (1, 0))
+    return song_of * R + pad + np.arange(counts.sum(), dtype=np.int64) - start[song_of]
 
 
 def build_row_valid(
@@ -73,13 +82,7 @@ def build_row_valid(
     """f32 [total] marker of real song rows in a uniform layout (1.0 on
     rows holding embeddings, 0.0 on pad/slack)."""
     rv = np.zeros(total, dtype=np.float32)
-    counts = np.asarray(counts, dtype=np.int64)
-    if len(counts) and counts.sum():
-        song_of = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
-        intra = np.arange(counts.sum(), dtype=np.int64) - np.pad(
-            np.cumsum(counts), (1, 0)
-        )[song_of]
-        rv[song_of * R + pad + intra] = 1.0
+    rv[song_rows(counts, R, pad)] = 1.0
     return rv
 
 
@@ -110,7 +113,8 @@ def alignment_core(
     row_valid: torch.Tensor | None = None,
     q_valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """db [N, d] (rows >= N read as zero); queries [B, S, d] in db's dtype.
+    """db [N, d] (rows >= N read as zero); queries [B, S, d] in db's dtype
+    (f32, bf16, or int8 with int32 sums).
 
     Returns (song_best [B, n_songs] f32 — summed alignment score,
     song_argoff [B, n_songs] int32 — best window offset within the region,

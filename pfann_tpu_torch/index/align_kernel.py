@@ -1,8 +1,9 @@
 """The align-reduce kernel: build, ctypes binding, wrapper, plain version.
 
 ``align_reduce`` is the port of the TPU kernel ``pallas_alignment_reduce``
-(``pfann_tpu/index/pallas_align.py:84-129``).  On a CUDA tensor it launches
-the hand-written kernel of ``csrc/align_reduce.cu`` (or raises); on a CPU
+(``pfann_tpu/index/pallas_align.py:84-129``), in f32, bf16 and int8 (int32
+sums, ``pallas_align.py:49-52``).  On a CUDA tensor it launches the
+hand-written kernel of ``csrc/align_reduce.cu`` (or raises); on a CPU
 tensor it runs ``align_reduce_reference``, the plain PyTorch version
 beside it.  There is no fallback from the kernel to the plain version.
 
@@ -29,10 +30,13 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the plain version chunks queries so its [N, S, chunk] f32 score tensor
-# stays under this many bytes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the plain version chunks queries so its [N, S, chunk] score tensor (f32,
+# or f64 for int8) stays under this many bytes
 REFERENCE_SCORE_BYTES = 1 << 30
+# an int8 row sum of S*d products (each at most 128^2) must fit the
+# kernel's int32 accumulator
+INT8_MAX_SD = (2**31 - 1) // (128 * 128)
 
 _lib = None
 build_info: dict = {}
@@ -86,7 +90,7 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.align_reduce_launch.restype = ctypes.c_int
-        lib.align_reduce_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.align_reduce_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.align_reduce_smem_bytes.restype = ctypes.c_longlong
         lib.align_reduce_error_string.argtypes = [ctypes.c_int]
         lib.align_reduce_error_string.restype = ctypes.c_char_p
@@ -94,10 +98,12 @@ def _load():
     return _lib
 
 
-def zero_extended(x: torch.Tensor, rows: int) -> torch.Tensor:
-    """x[:rows] as float32, with zero rows appended up to ``rows`` (the
+def zero_extended(
+    x: torch.Tensor, rows: int, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """x[:rows] in ``dtype``, with zero rows appended up to ``rows`` (the
     kernel reads rows >= N as zero)."""
-    x = x[:rows].float()
+    x = x[:rows].to(dtype)
     if x.shape[0] < rows:
         x = torch.cat([x, x.new_zeros(rows - x.shape[0], *x.shape[1:])])
     return x
@@ -119,9 +125,12 @@ def align_reduce_reference(
     db: torch.Tensor, queries: torch.Tensor, R: int, S: int, n_songs: int,
     window=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: f32 matmul to [N, S, B] (chunked
+    """Plain PyTorch version of the kernel: matmul to [N, S, B] (chunked
     over B), the diagonal sum over window rows, then the per-song max and
-    last-index argmax.  Same contract as :func:`align_reduce`.
+    last-index argmax.  Same contract as :func:`align_reduce`.  Float
+    inputs compute in f32; int8 inputs in f64, where every product and sum
+    of int8 values is an exact integer (an f32 sum stops being exact past
+    2^24), so best and argoff equal the kernel's int32 ones bit for bit.
 
     ``window(i, ip, batch)`` (optional) maps window row i's inner products
     ip [n_songs*R, n], for the queries ``batch`` (a slice of B), to what
@@ -130,12 +139,13 @@ def align_reduce_reference(
     B = queries.shape[0]
     N0 = n_songs * R
     need = N0 + S - 1
-    dbf = zero_extended(db, need)
+    acc = torch.float64 if db.dtype == torch.int8 else torch.float32
+    dbf = zero_extended(db, need, acc)
     best = torch.empty(B, n_songs, dtype=torch.float32, device=db.device)
     argoff = torch.empty(B, n_songs, dtype=torch.int32, device=db.device)
-    chunk = max(1, REFERENCE_SCORE_BYTES // max(need * S * 4, 1))
+    chunk = max(1, REFERENCE_SCORE_BYTES // max(need * S * dbf.element_size(), 1))
     for b0 in range(0, B, chunk):
-        q = queries[b0 : b0 + chunk].float()
+        q = queries[b0 : b0 + chunk].to(acc)
         n = q.shape[0]
         scores = (dbf @ q.permute(2, 1, 0).reshape(d, S * n)).view(need, S, n)
         align = None
@@ -152,9 +162,10 @@ def align_reduce(
     db: torch.Tensor, queries: torch.Tensor, R: int, S: int, n_songs: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """db [N, d] uniform layout (rows >= N read as zero), queries [B, S, d]
-    of db's dtype.  Returns (best [B, n_songs] f32, argoff [B, n_songs]
-    int32): the per-song max over offsets o in [0, R) of
-    sum_i db[s*R + o + i] . q[b, i], and the largest o reaching it.
+    of db's dtype (f32, bf16 or int8).  Returns (best [B, n_songs] f32,
+    argoff [B, n_songs] int32): the per-song max over offsets o in [0, R)
+    of sum_i db[s*R + o + i] . q[b, i], and the largest o reaching it.
+    int8 sums are exact int32 values, converted to f32 at the end.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if db.device.type == "cpu" and queries.device.type == "cpu":
@@ -166,8 +177,8 @@ def align_reduce(
         )
     if db.dtype not in _DTYPE_CODES or queries.dtype != db.dtype:
         raise TypeError(
-            "align_reduce kernel takes float32 or bfloat16 db and queries of "
-            "one dtype, got %s and %s" % (db.dtype, queries.dtype)
+            "align_reduce kernel takes float32, bfloat16 or int8 db and "
+            "queries of one dtype, got %s and %s" % (db.dtype, queries.dtype)
         )
     if db.dim() != 2 or queries.dim() != 3 or queries.shape[1:] != (S, db.shape[1]):
         raise ValueError(
@@ -180,6 +191,11 @@ def align_reduce(
     if R <= 0 or S <= 0 or n_songs < 0 or d % 4:
         raise ValueError("align_reduce kernel: R=%d S=%d n_songs=%d d=%d (d a "
                          "multiple of 4)" % (R, S, n_songs, d))
+    if db.dtype == torch.int8 and (
+            S * d > INT8_MAX_SD or db.data_ptr() % 4 or queries.data_ptr() % 4):
+        raise ValueError("align_reduce int8 kernel: S*d=%d must be <= %d (int32 "
+                         "sums) and db and queries 4-byte aligned"
+                         % (S * d, INT8_MAX_SD))
     best = torch.empty(B, n_songs, dtype=torch.float32, device=db.device)
     argoff = torch.empty(B, n_songs, dtype=torch.int32, device=db.device)
     if B == 0 or n_songs == 0:
@@ -196,10 +212,18 @@ def align_reduce(
             "align_reduce kernel launch failed: %s (cudaError %d; d=%d S=%d "
             "needs %d bytes of shared memory, B=%d, n_songs=%d)"
             % (lib.align_reduce_error_string(rc).decode(), rc, d, S,
-               lib.align_reduce_smem_bytes(d, S), B, n_songs)
+               lib.align_reduce_smem_bytes(d, S, _DTYPE_CODES[db.dtype]), B,
+               n_songs)
         )
     align_reduce.launches += 1
+    align_reduce.launches_by_dtype[db.dtype] += 1
     return best, argoff
 
 
-align_reduce.launches = 0
+def reset_launch_counts() -> None:
+    """Zero the kernel's launch counts (all dtypes, and per dtype)."""
+    align_reduce.launches = 0
+    align_reduce.launches_by_dtype = dict.fromkeys(_DTYPE_CODES, 0)
+
+
+reset_launch_counts()

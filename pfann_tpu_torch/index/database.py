@@ -10,9 +10,13 @@ The DB directory is the JAX package's, byte for byte:
     <db>/model.msgpack    flax-format params (utils/checkpoint.py reads it)
     <db>/index_meta.json  search settings (d, ntotal, align_pad)
 
-Only the exhaustive alignment engine (``engine="align"``) is served.  The
-screened and topk engines, the sharded engine, and queries longer than the
-layout pad raise NotImplementedError naming their ROADMAP item.
+Engines: the exhaustive alignment engine (``engine="align"``) and the
+screened engine (``engine="screen"``, ``screen: true``, or ``screen:
+"auto"`` at 30,000 songs or more, as in the JAX package), which honours the
+indexer keys ``screen_pool_k``, ``screen_top_m``, ``screen_coarse_dtype``,
+``screen_exact_dtype``, ``screen_rescue`` (default 0.4; 0/false disables)
+and ``backend``.  The topk engine, the sharded engine, and queries longer
+than the layout pad raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from pfann_tpu_torch.index.align import (
     AlignmentEngine,
     queries_to_filters,
 )
+from pfann_tpu_torch.index.screen import ScreenedAlignmentEngine
 from pfann_tpu_torch.index.search import bucket_windows, finalize_song_scores
 
 INDEX_META_NAME = "index_meta.json"
@@ -87,26 +92,22 @@ class Database:
         self.ntotal = emb.shape[0]
 
         engine = self.params.get("engine", "align")
-        if engine != "align":
+        # screen: true | false | 'auto' (default): auto upgrades the
+        # exhaustive engine to the screened one at 30,000 songs, the JAX
+        # package's threshold (pfann_tpu/index/database.py:129-143)
+        screen = self.params.get("screen", "auto")
+        if engine == "align" and (
+            screen is True or (screen == "auto" and len(counts) >= 30_000)
+        ):
+            engine = "screen"
+        if engine not in ("align", "screen"):
             raise NotImplementedError(
                 "engine=%r is not ported (ROADMAP: the %s engine); the port "
-                "serves engine='align'" % (engine, engine)
+                "serves engine='align' and 'screen'" % (engine, engine)
             )
         if self.params.get("sharded", False):
             raise NotImplementedError(
                 "sharded search is not ported (ROADMAP: multi-GPU)"
-            )
-        screen = self.params.get("screen", "auto")
-        if screen is True:
-            raise NotImplementedError(
-                "screen=true is not ported (ROADMAP: the screen engine)"
-            )
-        if screen == "auto" and len(counts) >= 30_000:
-            # the JAX package upgrades to the screened engine here; the
-            # exhaustive engine it keeps is exact, the screen approximates it
-            logger.info(
-                "%d songs: screen='auto' keeps the exhaustive align engine "
-                "(the screened engine is not ported yet)", len(counts)
             )
         self.engine = engine
         # align_pad: explicit indexer knob > index_meta (builder's
@@ -118,10 +119,25 @@ class Database:
         )
         dtype = (torch.bfloat16 if self.params.get("db_dtype", "bfloat16")
                  == "bfloat16" else torch.float32)
-        self._align = AlignmentEngine(
-            emb, counts, score_dtype=dtype, device=device,
-            pad=self.align_pad or DEFAULT_PAD, score_alpha=self.score_alpha,
-        )
+        if engine == "align":
+            self._align = AlignmentEngine(
+                emb, counts, score_dtype=dtype, device=device,
+                pad=self.align_pad or DEFAULT_PAD, score_alpha=self.score_alpha,
+            )
+        else:
+            self._align = ScreenedAlignmentEngine(
+                emb, counts, score_dtype=dtype, device=device,
+                pad=self.align_pad or DEFAULT_PAD,
+                k=int(self.params.get("screen_pool_k", 4)),
+                top_m=int(self.params.get("screen_top_m", 32)),
+                coarse_dtype=self.params.get("screen_coarse_dtype"),
+                exact_dtype=self.params.get("screen_exact_dtype"),
+                backend=self.params.get("backend", "auto"),
+                score_alpha=self.score_alpha,
+                rescue_threshold=float(
+                    self.params.get("screen_rescue", 0.4) or 0.0
+                ) or None,
+            )
         logger.info("score alpha: %d", self.score_alpha)
 
     def _check_len(self, n_rows: int) -> None:
@@ -212,7 +228,11 @@ class Database:
         B = len(queries)
         scale = self.hop_size / fsm
         allf, lens = self._filters(queries)
-        song, ssum, t = self._align.search_top1(allf)
+        if self.engine == "screen":
+            # the rescue gate divides the score sums by the true lengths
+            song, ssum, t = self._align.search_top1(allf, lens)
+        else:
+            song, ssum, t = self._align.search_top1(allf)
         mean = (ssum / np.maximum(lens, 1)).reshape(B, fsm)
         song = song.reshape(B, fsm)
         t_sub = t.reshape(B, fsm) * fsm - np.arange(fsm)[None, :]

@@ -298,7 +298,8 @@ def test_database_matches_jax(tmp_path, db_dtype, fsm):
 
 def test_database_align_pad_from_meta_and_limits(tmp_path):
     """align_pad comes from index_meta.json; queries longer than the pad,
-    and the engines that are not ported, raise NotImplementedError."""
+    and the engines that are not ported, raise NotImplementedError; the
+    screened engine is served."""
     rng = np.random.default_rng(2)
     counts = np.asarray([60, 70])
     root = str(tmp_path / "db")
@@ -312,7 +313,10 @@ def test_database_align_pad_from_meta_and_limits(tmp_path):
     assert (tid, tt) == (jid, jt)
     with pytest.raises(NotImplementedError, match="topk"):
         tdb.query_top1_batch([np.zeros((49, 8), np.float32)])
-    for bad in ({"engine": "screen"}, {"engine": "topk"}, {"screen": True},
-                {"sharded": True}):
+    for bad in ({"engine": "topk"}, {"sharded": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TorchDatabase(root, dict(bad, top_k=5), hop_size=0.5, device="cpu")
+    for screen in ({"engine": "screen"}, {"screen": True}):
+        sdb = TorchDatabase(root, dict(screen, top_k=5), hop_size=0.5, device="cpu")
+        assert sdb.engine == "screen" and sdb._align.pad == 48
+        assert sdb.query_top1_batch(q)[0][1] == (tid, tt)

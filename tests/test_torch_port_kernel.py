@@ -86,6 +86,59 @@ def test_reference_empty_inputs():
     assert best.shape == off.shape == (2, 0)
 
 
+def _int8_case(rng, S, B, d=128, n_songs=9, pad=32):
+    """An int8 layout and queries [B, S, d] of +-127-scale values.  Query 0
+    is a copy of song 0's window at offset pad + 2 (a row sum of ~S*d*127^2,
+    past 2^24 at S = 30), and offset pad + S + 10 holds the same window less
+    1 (one element where the query is 1 lowered by 1): an f32 sum would tie
+    the two and keep the later offset, the int32 sum keeps the earlier."""
+    counts = np.full(n_songs, 2 * S + 20)
+    R = pad + int(counts.max())
+    db = np.zeros((n_songs * R + pad, d), np.int8)
+    db[: n_songs * R] = rng.integers(-127, 128, size=(n_songs * R, d))
+    for s in range(n_songs):
+        db[s * R : s * R + pad] = 0
+    qs = rng.integers(-127, 128, size=(B, S, d)).astype(np.int8)
+    win = np.where(rng.random((S, d)) < 0.5, -127, 127).astype(np.int8)
+    win[S // 2, 3] = 1
+    o1, o2 = pad + 2, pad + S + 10
+    db[o1 : o1 + S] = win
+    db[o2 : o2 + S] = win
+    db[o2 + S // 2, 3] = 0
+    qs[0] = win
+    return db, qs, R, n_songs, (o1, o2)
+
+
+def _int8_definition(db, qs, R, S, n_songs):
+    """int64 align [B, n_songs, R]: the exact int8 x int8 sums."""
+    N0 = n_songs * R
+    dbp = np.concatenate([db, np.zeros((max(0, N0 + S - 1 - len(db)), db.shape[1]),
+                                       db.dtype)]).astype(np.int64)
+    out = np.zeros((qs.shape[0], N0), np.int64)
+    for i in range(S):
+        out += qs[:, i].astype(np.int64) @ dbp[i : N0 + i].T
+    return out.reshape(qs.shape[0], n_songs, R)
+
+
+@pytest.mark.parametrize("S,B", [(5, 3), (8, 2), (30, 4)])
+def test_int8_reference_matches_int64_definition(S, B):
+    """The int8 plain version is exact: best is the int64 row sum rounded
+    once to f32, argoff the last offset reaching the int64 max, also where
+    sums pass 2^24 (S = 30) and differ by 1 there."""
+    rng = np.random.default_rng(S)
+    db, qs, R, n_songs, (o1, o2) = _int8_case(rng, S, B)
+    best, off = align_reduce(torch.from_numpy(db), torch.from_numpy(qs), R, S, n_songs)
+    want = _int8_definition(db, qs, R, S, n_songs)
+    assert best.dtype == torch.float32 and off.dtype == torch.int32
+    np.testing.assert_array_equal(best.numpy(), want.max(axis=2).astype(np.float32))
+    np.testing.assert_array_equal(off.numpy(), _last_argmax(want))
+    assert off[0, 0] == o1 and want[0, 0, o1] - want[0, 0, o2] == 1
+    if S == 30:
+        assert want[0, 0, o1] > 2**24
+        assert np.float32(want[0, 0, o1]) == np.float32(want[0, 0, o2])
+    assert align_reduce.launches == 0
+
+
 def test_nvcc_missing_raises(monkeypatch, tmp_path):
     """No nvcc, no kernel: the build raises instead of falling back."""
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -146,3 +199,36 @@ def test_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="multiple of 4"):
         align_reduce(torch.zeros(40, 6, device=cuda_device),
                      torch.zeros(2, 3, 6, device=cuda_device), 10, 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B", [(5, 1), (6, 100), (8, 64), (30, 130)])
+def test_int8_kernel_matches_plain_on_card(cuda_device, S, B):
+    """int8 kernel == plain version, bitwise in best and argoff (both exact:
+    int32 sums in the kernel, float64 in the plain version)."""
+    rng = np.random.default_rng(S * B)
+    db, qs, R, n_songs, (o1, _) = _int8_case(rng, S, B, n_songs=57)
+    dbt = torch.from_numpy(db).to(cuda_device)
+    qt = torch.from_numpy(qs).to(cuda_device)
+    before = dict(align_reduce.launches_by_dtype)
+    kb, ko = align_reduce(dbt, qt, R, S, n_songs)
+    torch.cuda.synchronize()
+    assert align_reduce.launches_by_dtype[torch.int8] == before[torch.int8] + 1
+    assert align_reduce.launches_by_dtype[torch.bfloat16] == before[torch.bfloat16]
+    pb, po = align_reduce_reference(dbt, qt, R, S, n_songs)
+    assert torch.equal(kb, pb) and torch.equal(ko, po)
+    assert ko[0, 0].item() == o1
+
+
+@pytest.mark.cuda
+def test_kernel_int8_rejects_bad_inputs(cuda_device):
+    db = torch.zeros(40, 6, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        align_reduce(db, torch.zeros(2, 3, 6, dtype=torch.int8, device=cuda_device),
+                     10, 3, 2)
+    flat = torch.zeros(40 * 8 + 1, dtype=torch.int8, device=cuda_device)
+    q = torch.zeros(2, 3, 8, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        align_reduce(flat[1:].view(40, 8), q, 10, 3, 2)  # one byte off
+    with pytest.raises(TypeError):
+        align_reduce(flat[:320].view(40, 8), q.float(), 10, 3, 2)

@@ -5,7 +5,10 @@ Reuses the ``corpus`` and ``db_and_model`` fixtures of tests/test_e2e.py
 One subprocess runs the port's builder and matcher with ``--device cpu``
 exactly as ``python -m pfann_tpu_torch.{builder,matcher}`` would, and
 records which modules it imported: the port must pull in no jax, flax,
-msgpack or ml_dtypes.
+msgpack or ml_dtypes.  The matcher also serves a copy of the JAX-built DB
+whose configs.json indexer says ``screen: true`` (int8 coarse stage, top 3
+of the 5 songs survive), in default and ``--top1`` mode, against the JAX
+matcher on the same copy.
 
 Tolerances: both packages embed in bf16 (atol 2e-2 on unit-norm
 embeddings, see test_torch_port_model.py) and score in bf16 storage, so
@@ -16,6 +19,7 @@ must be equal.
 import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -34,11 +38,14 @@ import json, runpy, sys
 def run(mod, *argv):
     sys.argv = [mod, *argv, "--device", "cpu"]
     runpy.run_module(mod, run_name="__main__")
-lst, cfg, port_db, jax_db, qlist, out = sys.argv[1:7]
+lst, cfg, port_db, jax_db, qlist, out, screen_db = sys.argv[1:8]
 run("pfann_tpu_torch.builder", lst, port_db, cfg)
 run("pfann_tpu_torch.matcher", qlist, jax_db, out + "/result.txt")
 run("pfann_tpu_torch.matcher", qlist, jax_db, out + "/result_top1.txt", "--top1")
 run("pfann_tpu_torch.matcher", qlist, port_db, out + "/result_portdb.txt", "--top1")
+run("pfann_tpu_torch.matcher", qlist, screen_db, out + "/result_screen.txt")
+run("pfann_tpu_torch.matcher", qlist, screen_db, out + "/result_screen_top1.txt",
+    "--top1")
 with open(out + "/modules.json", "w") as f:
     json.dump(sorted(sys.modules), f)
 """
@@ -62,21 +69,42 @@ def queries(corpus, tmp_path_factory):  # noqa: F811
     return qlist
 
 
+SCREEN_INDEXER = {"screen": True, "screen_coarse_dtype": "int8", "screen_top_m": 3}
+
+
 @pytest.fixture(scope="module")
-def jax_results(db_and_model, queries, tmp_path_factory):  # noqa: F811
-    """The JAX matcher's outputs on the same DB and queries."""
+def screen_db(db_and_model, tmp_path_factory):  # noqa: F811
+    """A copy of the JAX-built DB whose configs.json indexer asks for the
+    screened engine."""
+    _, db_dir = db_and_model
+    out = str(tmp_path_factory.mktemp("screen") / "db")
+    shutil.copytree(db_dir, out)
+    path = os.path.join(out, "configs.json")
+    cfg = json.load(open(path))
+    cfg["indexer"].update(SCREEN_INDEXER)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_results(db_and_model, screen_db, queries, tmp_path_factory):  # noqa: F811
+    """The JAX matcher's outputs on the same DB (and its screen copy) and
+    queries."""
     sys.path.insert(0, REPO)
     import matcher as jax_matcher
 
     _, db_dir = db_and_model
     out = tmp_path_factory.mktemp("jax_out")
-    embedder, db, params = jax_matcher.load_model_and_db(db_dir)
-    jax_matcher.match_list(embedder, db, params, queries, str(out / "result.txt"))
+    for src, name in ((db_dir, "result.txt"), (screen_db, "result_screen.txt")):
+        embedder, db, params = jax_matcher.load_model_and_db(src)
+        jax_matcher.match_list(embedder, db, params, queries, str(out / name))
+    assert db.engine == "screen"
     return str(out)
 
 
 @pytest.fixture(scope="module")
-def port_run(db_and_model, queries, tmp_path_factory):  # noqa: F811
+def port_run(db_and_model, screen_db, queries, tmp_path_factory):  # noqa: F811
     cfg, db_dir = db_and_model
     root = os.path.dirname(db_dir)
     out = tmp_path_factory.mktemp("port_out")
@@ -85,7 +113,7 @@ def port_run(db_and_model, queries, tmp_path_factory):  # noqa: F811
     subprocess.run(
         [sys.executable, "-c", _PORT_RUN, os.path.join(root, "db_list.txt"),
          os.path.join(cfg["model_dir"], "configs.json"), port_db, db_dir,
-         queries, str(out)],
+         queries, str(out), screen_db],
         check=True, cwd=REPO, env=env, timeout=300,
     )
     return str(out), port_db
@@ -99,6 +127,7 @@ def test_port_imports_no_jax(port_run):
     out, _ = port_run
     mods = json.load(open(os.path.join(out, "modules.json")))
     assert "pfann_tpu_torch.index.align_kernel" in mods
+    assert "pfann_tpu_torch.index.screen" in mods
     for banned in ("jax", "flax", "msgpack", "ml_dtypes"):
         assert not [m for m in mods if m == banned or m.startswith(banned + ".")], banned
 
@@ -178,3 +207,27 @@ def test_each_package_serves_the_others_db(db_and_model, port_run):  # noqa: F81
         assert ts == pytest.approx(js, abs=SCORE_ATOL)
     assert [r[1] for r in tdb.query_top1_batch(queries)] == [
         (s, 1.5) for s in range(5)]
+
+
+def test_port_matcher_serves_screen_db(port_run, jax_results, screen_db):
+    """A DB whose indexer says screen: true is served by the screened engine
+    through the port's matcher: the default and --top1 TSVs are byte-equal
+    to the JAX matcher's on that DB.  (With 3 of 5 songs kept, the screen
+    answers one query otherwise than the exhaustive engine, in both
+    packages: the tiny model's margins are small and no score falls below
+    the rescue cut.)"""
+    from pfann_tpu_torch.index.database import Database as TorchDatabase
+
+    out, _ = port_run
+    want = open(os.path.join(jax_results, "result_screen.txt"), "rb").read()
+    for name in ("result_screen.txt", "result_screen_top1.txt"):
+        assert open(os.path.join(out, name), "rb").read() == want, name
+    got = _detail(os.path.join(out, "result_screen_detail.csv"))
+    jwant = _detail(os.path.join(jax_results, "result_screen_detail.csv"))
+    assert len(got) == len(jwant) == 7
+    for g, w in zip(got[1:], jwant[1:]):
+        assert g[:2] == w[:2] and g[3] == w[3]
+        assert float(g[2]) == pytest.approx(float(w[2]), abs=SCORE_ATOL)
+    cfg = json.load(open(os.path.join(screen_db, "configs.json")))
+    db = TorchDatabase(screen_db, cfg["indexer"], cfg["hop_size"], device="cpu")
+    assert db.engine == "screen" and db._align.top_m == 3
