@@ -7,7 +7,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 
   1. the card: nvidia-smi name and power limit, torch and CUDA versions.
      No CUDA, no run.
-  2. build the align-reduce kernel from pfann_tpu_torch/csrc/ with nvcc.
+  2. build the align-reduce kernel from pfann_tpu_torch/csrc/ with nvcc;
+     print ptxas's registers, shared memory and spills per instantiation,
+     and count the tensor-core instructions (HMMA / IMMA, or HGMMA /
+     IGMMA) in the SASS of each bf16 and int8 instantiation: none fails.
   3. kernel against its plain PyTorch version on the card: bf16 and f32;
      pad 32 with S in {19, 24, 32} and pad 128 with S = 119; B in
      {1, 100, 1024}; ~1k songs of 40-120 rows at d = 128.  Then the int8
@@ -17,7 +20,7 @@ Phases, in order; any failure raises and the script exits nonzero:
   4. the serving scenario of bench.py: 10,000 songs x 120 rows, d = 128,
      bf16, S = 19, 1,024 noisy self-queries; recall must be 1024/1024.
      Times the kernel against the plain version at B = 1024 and at the
-     matcher's default batch of 32.
+     matcher's default batch of 32, each held to the plain version first.
   5. the slice through the entry points: a 64-song x 30 s synthetic
      corpus, a flagship-width model (configs/default.json: d=128, h=1024,
      u=32, fuller) with random weights from a seed, saved with the port's
@@ -30,18 +33,33 @@ Phases, in order; any failure raises and the script exits nonzero:
      rows, d = 128, k = 4, top_m = 32, bf16 exact layout, int8 stage 1,
      rescue 0.4.  1,024 clean queries (recall 1024/1024), 256 noisy ones
      (some escalate; answers equal the exhaustive engine's where its top-1
-     margin is clear), the int8 kernel against its plain version on the
-     coarse copy, and the same corpus with an int8 exact layout.
+     margin is clear), the int8 stage-1 launch against its plain version on
+     all 1,024 queries (bitwise) and the bf16 stage-3 launch against its
+     plain version on the 256, and the same corpus with an int8 exact
+     layout.
 
-Each path (phase 5's two engines, phase 6's batches) is driven with the
-kernel's launch counts set to 0 just before it and read just after.  The
-line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.
+Phases 3, 4 and 6 print each kernel's time beside its bound (the larger of
+the operations over the card's published dense peak for their type and
+the bytes over its memory rate, from the shapes), its plain version's time
+and a library yardstick that only this script calls: F.conv1d of the
+layout as [1, d, N + S - 1] with the queries as [B, d, S] filters and the
+per-song amax for bf16 and f32, and torch._int_mm of the Gram product
+[N, d] x [d, Sc*B], chunked, for int8 (the products only: a lower bound on
+a library route).
+
+Every kernel shape that is timed is held to the plain version on the
+same inputs.  Each path (phase 5's two engines, phase 6's batches) is
+driven with the kernel's launch counts set to 0 just before it and read
+just after.  The line before the last is a JSON object describing each
+kernel; the last line is {"ok": true, "device": {...}}.
 """
 
+import collections
 import csv
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -49,14 +67,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# JAX-free host modules of pfann_tpu that the port reuses as they are
-# (the port's builder imports them too); no JAX is imported here
-from pfann_tpu.audio.io import write_wav  # noqa: E402
-from pfann_tpu.data.musicdata import MusicDataset  # noqa: E402
 from pfann_tpu_torch import builder, matcher  # noqa: E402
+from pfann_tpu_torch.audio.io import write_wav  # noqa: E402
+from pfann_tpu_torch.data.musicdata import MusicDataset  # noqa: E402
 from pfann_tpu_torch.index import align_kernel  # noqa: E402
 from pfann_tpu_torch.index.align import (  # noqa: E402
     AlignmentEngine,
@@ -67,6 +84,7 @@ from pfann_tpu_torch.index.align_kernel import (  # noqa: E402
     align_reduce,
     align_reduce_reference,
     reset_launch_counts,
+    zero_extended,
 )
 from pfann_tpu_torch.index.database import Database  # noqa: E402
 from pfann_tpu_torch.index.embedder import Embedder  # noqa: E402
@@ -85,10 +103,110 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # taken in other orders; offsets may differ only where two offsets score
 # within this of each other
 BEST_ATOL = 2e-3
+# One H100 SXM, dense, from NVIDIA's data sheet: the tensor cores for bf16
+# and int8, the CUDA cores for f32 (its kernel runs there); HBM3 rate.
+PEAK_OPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
+HBM_BYTES_S = 3.35e12
 
 
 def phase(n, title):
     print("== phase %d: %s" % (n, title), flush=True)
+
+
+def bound(dtype, N, d, S, B, n_songs, R):
+    """(ms, "operations" | "bytes"): the least time the card could take
+    for one align-reduce call: 2*n_songs*R*d*S*B operations at the peak for
+    dtype, against db, queries and outputs (best, argoff) each moved once."""
+    item = torch.empty((), dtype=dtype).element_size()
+    ops_ms = 2.0 * n_songs * R * d * S * B / PEAK_OPS[dtype] * 1e3
+    bytes_ms = (N * d * item + B * S * d * item + B * n_songs * 8) / HBM_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def conv_library_ms(db, q, R, S, n_songs, reps):
+    """The library yardstick for bf16 and f32: F.conv1d of the layout as
+    [1, d, N + S - 1] (zero rows past N) with the queries as [B, d, S]
+    filters, then the per-song amax (no argmax)."""
+    n0 = n_songs * R
+    x = zero_extended(db, max(db.shape[0], n0) + S - 1, db.dtype).T.contiguous()[None]
+    w = q.permute(0, 2, 1).contiguous()
+    ms = time_ms(lambda: F.conv1d(x, w)[0, :, :n0].reshape(q.shape[0], n_songs, R).amax(-1),
+                 reps)
+    del x, w
+    torch.cuda.empty_cache()
+    return ms
+
+
+def int_mm_library_ms(coarse, q8, reps, rows=1 << 18):
+    """The library yardstick for int8, a lower bound on a library route:
+    torch._int_mm of the Gram product [N, d] x [d, Sc*B] (columns padded to
+    a multiple of 8), in chunks of `rows` rows; the products only."""
+    B, Sc, d = q8.shape
+    n = -(-Sc * B // 8) * 8
+    bq = torch.zeros(n, d, dtype=torch.int8, device=q8.device)
+    bq[: Sc * B] = q8.reshape(-1, d)
+    out = torch.empty(min(rows, coarse.shape[0]), n, dtype=torch.int32, device=q8.device)
+
+    def run():
+        for r0 in range(0, coarse.shape[0], rows):
+            a = coarse[r0 : r0 + rows]
+            if a.shape[0] > 16:  # cuBLASLt's least row count
+                torch._int_mm(a, bq.t(), out=out[: a.shape[0]])
+
+    ms = time_ms(run, reps)
+    del out, bq
+    torch.cuda.empty_cache()
+    return ms
+
+
+def fmt_bound(b):
+    return "bound %.3f ms (%s)" % b
+
+
+_KERNEL_NAME = re.compile(
+    r"align_reduce_mma.*?(Bf16Op|Int8Op)ELb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def kernel_label(mangled):
+    """A short name for a kernel instantiation of csrc/align_reduce.cu."""
+    m = _KERNEL_NAME.search(mangled)
+    if m:
+        op, rs, wm, wn, mt, nt = m.groups()
+        return "%s TM=%d TN=%d%s" % ({"Bf16Op": "bf16", "Int8Op": "int8"}[op],
+                                     int(wm) * int(mt) * 16, int(wn) * int(nt) * 8,
+                                     " rowsum" if rs == "1" else "")
+    return "f32" if "align_reduce_f32" in mangled else mangled
+
+
+def ptxas_report(log):
+    """[(instantiation, its ptxas 'Used ...' line and any spill line)]."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+        elif name and ("Used" in line or "spill" in line):
+            out.append((name, line.split(":", 1)[-1].strip()))
+    return out
+
+
+def sass_tensor_core_counts(lib_path):
+    """{instantiation: Counter of HMMA/IMMA/HGMMA/IGMMA in its SASS}, or
+    None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            counts[name] = collections.Counter()
+        elif name:
+            counts[name].update(re.findall(r"\b(HMMA|IMMA|HGMMA|IGMMA)\.", line))
+    return counts
 
 
 def time_ms(fn, reps):
@@ -103,14 +221,16 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def exact_scores(db_np, q_np, R, S, picks):
-    """float64 align at (b, song, offset) triples, from the definition."""
+def exact_scores(db, q, R, S, picks, chunk=4096):
+    """float64 align at (b, song, offset) triples, from the definition, on
+    db's device (rows past its end read as zero)."""
+    picks = torch.as_tensor(np.asarray(picks, np.int64).reshape(-1, 3), device=db.device)
     out = []
-    for b, s, o in picks:
-        rows = db_np[s * R + o : s * R + o + S].astype(np.float64)
-        rows = np.concatenate([rows, np.zeros((S - len(rows), rows.shape[1]))])
-        out.append(float((rows * q_np[b].astype(np.float64)).sum()))
-    return np.asarray(out)
+    for p in picks.split(chunk):
+        rows = (p[:, 1] * R + p[:, 2])[:, None] + torch.arange(S, device=db.device)
+        win = db[rows.clamp(max=db.shape[0] - 1)].double() * (rows < db.shape[0])[..., None]
+        out.append((win * q[p[:, 0]].double()).sum((1, 2)))
+    return torch.cat(out).cpu().numpy() if out else np.zeros(0)
 
 
 def compare(db, q, R, S, n_songs):
@@ -129,10 +249,9 @@ def compare(db, q, R, S, n_songs):
     if len(bad):
         if len(bad) > max(10, ko.size // 100):
             raise AssertionError("%d argoff differences" % len(bad))
-        db_np = db.float().cpu().numpy()
-        q_np = q.float().cpu().numpy()
-        a = exact_scores(db_np, q_np, R, S, [(b, s, ko[b, s]) for b, s in bad])
-        p = exact_scores(db_np, q_np, R, S, [(b, s, po[b, s]) for b, s in bad])
+        b, s = bad[:, 0], bad[:, 1]
+        a = exact_scores(db, q, R, S, np.stack([b, s, ko[b, s]], 1))
+        p = exact_scores(db, q, R, S, np.stack([b, s, po[b, s]], 1))
         if np.abs(a - p).max() > BEST_ATOL:
             raise AssertionError("argoff differs where the margin exceeds %g" % BEST_ATOL)
     return err, len(bad), (kb, ko)
@@ -241,19 +360,22 @@ def screen_scenario(dev, card) -> dict:
     qc8 = quantize_queries_int8(collapse_queries(qd, k))
     Sc = qc8.shape[1]
     s1_ms = time_ms(lambda: align_reduce(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad), 5)
-    err8 = compare_exact(eng._coarse, qc8[:64].contiguous(), eng.Rc, Sc, eng.n_pad)
+    err8 = compare_exact(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad)
     s1_plain_ms = time_ms(
         lambda: align_reduce_reference(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad), 1)
+    s1_lib_ms = int_mm_library_ms(eng._coarse, qc8, 3)
+    s1_bound = bound(torch.int8, eng._coarse.shape[0], d, Sc, B, eng.n_pad, eng.Rc)
     best_c = align_reduce(eng._coarse, qc8, eng.Rc, Sc, eng.n_pad)[0]
     sort_ms = time_ms(lambda: torch.sort(best_c, dim=1, descending=True, stable=True), 3)
     del best_c
     torch.cuda.empty_cache()
     print("  search_top1 %.4f s/batch = %.1f queries/s; stages 1+2 on the device %.3f ms, "
           "with the stage-3 gate (one sync) %.3f ms; int8 stage-1 launch (Sc=%d) %.3f ms, "
-          "its plain version %.3f ms; top-M stable sort of [%d, %d] %.3f ms; int8 kernel "
-          "== plain on 64 queries, bitwise  %s" % (
+          "its plain version %.3f ms, _int_mm products %.3f ms, %s; top-M stable sort of "
+          "[%d, %d] %.3f ms; int8 kernel == plain on all %d queries, bitwise  %s" % (
               batch_ms / 1e3, B / (batch_ms / 1e3), bare_ms, gated_ms, Sc, s1_ms,
-              s1_plain_ms, B, eng.n_pad, sort_ms, card), flush=True)
+              s1_plain_ms, s1_lib_ms, fmt_bound(s1_bound), B, eng.n_pad, sort_ms, B, card),
+          flush=True)
 
     # 256 noisy queries: the winner-drop regime; stage 3 must escalate some
     fn, srcn, _ = batch(2, 256, 0.46)
@@ -267,7 +389,17 @@ def screen_scenario(dev, card) -> dict:
     if esc_noisy < 1 or launched(torch.bfloat16) < 1:
         raise AssertionError("the noisy batch escalated %d queries" % esc_noisy)
     noisy_ms = time_ms(lambda: eng.search_top1(fn), 1)
-    del eng, qd, qc8
+    # stage 3 alone: the bf16 kernel over the whole exact layout, 256 queries
+    db3 = eng._db3.view(-1, d)
+    q3 = torch.from_numpy(fn).to(dev, torch.bfloat16)
+    err3, nbad3, _ = compare(db3, q3, eng.R, S, eng.n_pad)
+    s3_ms = time_ms(lambda: align_reduce(db3, q3, eng.R, S, eng.n_pad), 3)
+    s3_lib_ms = conv_library_ms(db3, q3, eng.R, S, eng.n_pad, 1)
+    s3_bound = bound(torch.bfloat16, db3.shape[0], d, S, 256, eng.n_pad, eng.R)
+    print("  stage 3 (bf16 kernel, 256 queries, R=%d): %.3f ms, conv1d %.3f ms, %s; "
+          "vs plain max|dbest| %.2e, argoff ties %d  %s" % (
+              eng.R, s3_ms, s3_lib_ms, fmt_bound(s3_bound), err3, nbad3, card), flush=True)
+    del eng, qd, qc8, db3, q3
     torch.cuda.empty_cache()
     full = AlignmentEngine(emb, counts, score_dtype=torch.bfloat16, device=dev)
     (fb, fo), = full.search_device(fn)
@@ -306,8 +438,9 @@ def screen_scenario(dev, card) -> dict:
               B / (ms8 / 1e3), card), flush=True)
     del eng8
     torch.cuda.empty_cache()
-    return {"launches_int8": n8, "launches_bf16": n16, "max_abs_err": err8,
-            "ms": s1_ms, "plain_ms": s1_plain_ms}
+    return {"launches_int8": n8, "launches_bf16": n16, "max_abs_err": err8, "bf16_err": err3,
+            "ms": s1_ms, "plain_ms": s1_plain_ms, "library_ms": s1_lib_ms,
+            "bound": s1_bound}
 
 
 def main() -> None:
@@ -334,9 +467,18 @@ def main() -> None:
     lib = align_kernel.build()
     print("built %s in %.2f s (cached=%s)" % (
         os.path.relpath(lib, REPO), time.time() - tm, align_kernel.build_info["cached"]))
-    for line in align_kernel.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    for name, line in ptxas_report(align_kernel.build_info.get("log", "")):
+        print("  ptxas %-18s %s" % (name, line))
+    sass = sass_tensor_core_counts(lib)
+    if sass is None:
+        print("  no cuobjdump in this toolkit: tensor-core SASS not counted")
+    else:
+        for name, c in sorted(sass.items()):
+            print("  SASS %-18s %s" % (name, dict(c) or "no tensor-core instructions"))
+        for tag, ops in (("bf16", ("HMMA", "HGMMA")), ("int8", ("IMMA", "IGMMA"))):
+            inst = {n: c for n, c in sass.items() if n.startswith(tag)}
+            if not inst or any(sum(c[op] for op in ops) == 0 for c in inst.values()):
+                raise AssertionError("%s instantiations without %s: %s" % (tag, ops, inst))
 
     # ---------------------------------------------------------------- 3
     phase(3, "kernel vs plain on the card")
@@ -359,10 +501,12 @@ def main() -> None:
                     k_ms = time_ms(lambda: align_reduce(db, q, R, S, len(counts)), 3)
                     p_ms = time_ms(
                         lambda: align_reduce_reference(db, q, R, S, len(counts)), 1)
+                    lib_ms = conv_library_ms(db, q, R, S, len(counts), 3)
+                    bnd = bound(dtype, db.shape[0], d, S, B, len(counts), R)
                     print("  %-8s pad %3d S %3d B %4d: kernel %9.3f ms  plain %9.3f ms"
-                          "  max|dbest| %.2e  argoff ties %d  %s" % (
-                              str(dtype).split(".")[1], pad, S, B, k_ms, p_ms,
-                              err, nbad, card), flush=True)
+                          "  conv1d %8.3f ms  %s  max|dbest| %.2e  argoff ties %d  %s" % (
+                              str(dtype).split(".")[1], pad, S, B, k_ms, p_ms, lib_ms,
+                              fmt_bound(bnd), err, nbad, card), flush=True)
             del db
     torch.cuda.empty_cache()
     # the int8 variant on the same corpus, pooled and quantized as stage 1
@@ -382,8 +526,11 @@ def main() -> None:
                 int8_err = max(int8_err, compare_exact(c8, q, Rc, Sc, n_pad))
                 k_ms = time_ms(lambda: align_reduce(c8, q, Rc, Sc, n_pad), 3)
                 p_ms = time_ms(lambda: align_reduce_reference(c8, q, Rc, Sc, n_pad), 1)
+                lib_ms = int_mm_library_ms(c8, q, 3)
+                bnd = bound(torch.int8, c8.shape[0], d, Sc, B, n_pad, Rc)
                 print("  int8     pad %3d Sc %3d B %4d: kernel %9.3f ms  plain %9.3f ms"
-                      "  bitwise equal  %s" % (pad, Sc, B, k_ms, p_ms, card), flush=True)
+                      "  _int_mm products %8.3f ms  %s  bitwise equal  %s" % (
+                          pad, Sc, B, k_ms, p_ms, lib_ms, fmt_bound(bnd), card), flush=True)
         del c8, db3, coarse, flat
     torch.cuda.empty_cache()
 
@@ -415,7 +562,7 @@ def main() -> None:
     if hits != B:
         raise AssertionError("recall sanity failed: %d/%d" % (hits, B))
     q = torch.from_numpy(f).to(dev, torch.bfloat16)
-    err, nbad, _ = compare(engine._db, q[:64], engine.R, S, n_songs)
+    err, nbad, _ = compare(engine._db, q, engine.R, S, n_songs)
     max_err = max(max_err, err)
     kernel_ms = time_ms(lambda: align_reduce(engine._db, q, engine.R, S, n_songs), 5)
     # the plain version at its 1 GiB default score-tensor cap (9 queries a
@@ -427,19 +574,28 @@ def main() -> None:
             lambda: align_reduce_reference(engine._db, q, engine.R, S, n_songs), 1)
         torch.cuda.empty_cache()
     qb = q[:32].contiguous()  # the matcher's default batch (--batch 32, fsm 1)
+    err32, nbad32, _ = compare(engine._db, qb, engine.R, S, n_songs)
+    max_err = max(max_err, err32)
     k32 = time_ms(lambda: align_reduce(engine._db, qb, engine.R, S, n_songs), 5)
     p32 = time_ms(lambda: align_reduce_reference(engine._db, qb, engine.R, S, n_songs), 3)
     align_kernel.REFERENCE_SCORE_BYTES = 1 << 30
     plain_ms = min(plain_by_cap.values())
-    flops = 2.0 * engine._db.shape[0] * d * S * B
-    print("  kernel %.4f s/batch = %.1f queries/s (%.1f TFLOP/s f32-FMA work); "
+    library_ms = conv_library_ms(engine._db, q, engine.R, S, n_songs, 3)
+    lib32 = conv_library_ms(engine._db, qb, engine.R, S, n_songs, 5)
+    bound_4 = bound(torch.bfloat16, engine._db.shape[0], d, S, B, n_songs, engine.R)
+    bound32 = bound(torch.bfloat16, engine._db.shape[0], d, S, 32, n_songs, engine.R)
+    flops = 2.0 * n_songs * engine.R * d * S * B
+    print("  kernel %.4f s/batch = %.1f queries/s (%.1f TFLOP/s of bf16 work); "
           "plain %.4f s/batch (1 GiB chunks) %.4f s/batch (16 GiB chunks) = %.1f "
-          "queries/s at the faster; max|dbest| %.2e (64 queries)  %s" % (
+          "queries/s at the faster; conv1d %.4f s/batch; %s; vs plain max|dbest| %.2e, "
+          "argoff ties %d  %s" % (
               kernel_ms / 1e3, B / (kernel_ms / 1e3), flops / kernel_ms / 1e9,
               plain_by_cap[1 << 30] / 1e3, plain_by_cap[16 << 30] / 1e3,
-              B / (plain_ms / 1e3), err, card), flush=True)
-    print("  B=32: kernel %.3f ms, plain %.3f ms (one chunk)  %s" % (k32, p32, card),
+              B / (plain_ms / 1e3), library_ms / 1e3, fmt_bound(bound_4), err, nbad, card),
           flush=True)
+    print("  B=32: kernel %.3f ms, plain %.3f ms (one chunk), conv1d %.3f ms, %s; vs plain "
+          "max|dbest| %.2e, argoff ties %d  %s" % (
+              k32, p32, lib32, fmt_bound(bound32), err32, nbad32, card), flush=True)
     del engine, q, qb, emb
     torch.cuda.empty_cache()
 
@@ -585,6 +741,7 @@ def main() -> None:
     shot = screen_scenario(dev, card)
     launches_int8 += shot["launches_int8"]
     launches += shot["launches_bf16"]
+    max_err = max(max_err, shot["bf16_err"])
 
     print(json.dumps({"kernels": [{
         "name": "align_reduce",
@@ -595,6 +752,9 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_4[0],
+        "bound_by": bound_4[1],
+        "library_ms": library_ms,
     }, {
         "name": "align_reduce_int8",
         "route": "cuda",
@@ -604,6 +764,9 @@ def main() -> None:
         "max_abs_err": max(int8_err, shot["max_abs_err"]),
         "ms": shot["ms"],
         "plain_ms": shot["plain_ms"],
+        "bound_ms": shot["bound"][0],
+        "bound_by": shot["bound"][1],
+        "library_ms": shot["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

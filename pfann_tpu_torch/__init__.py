@@ -2,13 +2,15 @@
 
 The JAX package ``pfann_tpu`` is the reference; this package holds the
 same main path (DB build and serving) for one NVIDIA H100: log-mel,
-FpNetwork, the exhaustive alignment engine with its hand-written CUDA
-align-reduce kernel (``csrc/align_reduce.cu``), the Database and the
-``builder``/``matcher`` entry points.  It imports torch and never jax or
-flax; the JAX-free host modules of ``pfann_tpu`` (audio decode,
-``MusicDataset``, config and logging) are reused as they are.
+FpNetwork, the exhaustive and screened alignment engines with their
+hand-written CUDA align-reduce kernel (``csrc/align_reduce.cu``), the
+Database and the ``builder``/``matcher`` entry points.  It imports torch
+and nothing of jax, flax or ``pfann_tpu``: the host modules it needs
+(audio decode and resample, ``MusicDataset``, config and logging) are
+copies in ``audio/``, ``data/`` and ``utils/``.
 
-Layout mirrors ``pfann_tpu``: ``ops/``, ``models/``, ``index/``, ``utils/``.
+Layout mirrors ``pfann_tpu``: ``audio/``, ``data/``, ``ops/``, ``models/``,
+``index/``, ``utils/``.
 """
 
 __version__ = "0.1.0"

@@ -18,11 +18,12 @@ import time
 
 import numpy as np
 
-from pfann_tpu.data.musicdata import MusicDataset
-from pfann_tpu.utils import MultiProcessInitLogger, get_logger, read_config
+from pfann_tpu_torch.data.musicdata import MusicDataset
 from pfann_tpu_torch.index.database import MODEL_FILE_NAME, write_index_meta
 from pfann_tpu_torch.index.embedder import Embedder
+from pfann_tpu_torch.utils.config import read_config
 from pfann_tpu_torch.utils.device import pop_device_flag, resolve_device
+from pfann_tpu_torch.utils.logging import MultiProcessInitLogger, get_logger
 
 
 def build_embeddings(

@@ -28,8 +28,6 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from pfann_tpu.utils import read_file_list
-from pfann_tpu.utils.logging import get_logger
 from pfann_tpu_torch.index.align import (
     DEFAULT_PAD,
     AlignmentEngine,
@@ -37,6 +35,8 @@ from pfann_tpu_torch.index.align import (
 )
 from pfann_tpu_torch.index.screen import ScreenedAlignmentEngine
 from pfann_tpu_torch.index.search import bucket_windows, finalize_song_scores
+from pfann_tpu_torch.utils.config import read_file_list
+from pfann_tpu_torch.utils.logging import get_logger
 
 INDEX_META_NAME = "index_meta.json"
 MODEL_FILE_NAME = "model.msgpack"

@@ -55,7 +55,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pfann_tpu.utils.logging import get_logger
 from pfann_tpu_torch.index.align import (
     _ALPHA_ON_CUDA,
     DEFAULT_PAD,
@@ -64,9 +63,10 @@ from pfann_tpu_torch.index.align import (
     build_row_valid,
     song_rows,
 )
+from pfann_tpu_torch.index.align_kernel import QUERY_TILES
+from pfann_tpu_torch.utils.logging import get_logger
 
 SONG_GROUP = 8  # n_pad multiple (JAX's PALLAS_G): same padding slots as JAX
-QUERY_TILE = 64  # queries per kernel block (csrc/align_reduce.cu TB)
 
 
 def coarse_dtype_of(name, default: torch.dtype) -> torch.dtype:
@@ -405,11 +405,12 @@ class ScreenedAlignmentEngine:
     def _chunk_for(self, S: int) -> int:
         """Queries per dispatch: the stage-2 workspace under the cap, at
         most MAX_BATCH (bounds stage 1's [B, n_pad] outputs), and a whole
-        number of the kernel's 64-query tiles when above one."""
+        number of the kernel's largest query tile when above one."""
         item = self._db3.element_size()
         per_b = 4 * self.top_m * self.R * (S + 2) + self.R * self.d * (item + 4)
         cap = min(MAX_BATCH, max(1, self.STAGE2_BYTES_CAP // per_b))
-        return cap // QUERY_TILE * QUERY_TILE if cap > QUERY_TILE else cap
+        tile = QUERY_TILES[-1]
+        return cap // tile * tile if cap > tile else cap
 
     def _chunks(self, filters, sub_lens=None):
         """Yield (rows slice, queries [n, S, d] f32 on the device, lens [n]

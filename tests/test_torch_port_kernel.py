@@ -12,8 +12,12 @@ plain version on the card and skip where no card is visible.
 Tolerances: plain version vs float64 definition atol 1e-5 (f32 sums of up
 to S*d = 4k terms of magnitude <= 1/d); kernel vs plain version atol 1e-3
 on the card (the same f32 sums in other orders), offsets equal wherever
-the runner-up offset is more than that below the best.
+the runner-up offset is more than that below the best; BEST_ATOL = 2e-3
+(chip_smoke.py's) where the queries are not unit-scaled per element.
+int8 is bitwise equal everywhere.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -21,7 +25,20 @@ import torch
 
 from pfann_tpu_torch.index import align_kernel
 from pfann_tpu_torch.index.align import build_uniform_layout
-from pfann_tpu_torch.index.align_kernel import align_reduce, align_reduce_reference
+from pfann_tpu_torch.index.align_kernel import (
+    CHAIN_MAX_SD,
+    INT8_MAX_SD,
+    QUERY_STAGES,
+    QUERY_TILES,
+    SMEM_LIMIT,
+    TILE_CONFIGS,
+    align_reduce,
+    align_reduce_reference,
+    copy_bytes,
+    tile_plan,
+)
+
+BEST_ATOL = 2e-3
 
 
 def _corpus(rng, counts, d):
@@ -151,6 +168,78 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
         align_kernel.build()
 
 
+# ------------------------------------------------------------ the tile plan
+def _pr2_smem(d, S, itemsize):
+    """Shared memory of the CUDA-core kernel that bf16 and int8 ran on
+    before the tensor-core kernel: 64 offsets + S - 1 rows and 64 query
+    rows of 4-byte units (f32, or four int8), row stride rounded up to 4
+    units plus 4."""
+    du = d // 4 if itemsize == 1 else d
+    return max((64 + S - 1 + 64) * ((du + 3) // 4 * 4 + 4) * 4, 16 * 64 * 8)
+
+
+@pytest.mark.parametrize("itemsize", [2, 1])
+@pytest.mark.parametrize("d", [4, 12, 128])
+@pytest.mark.parametrize("S", [1, 5, 19, 32, 119])
+@pytest.mark.parametrize("B", [1, 7, 32, 100, 1024])
+def test_tile_plan(B, S, d, itemsize):
+    """The plan fits shared memory, its grid covers every (song, query)
+    exactly once, and its query tile is the smallest that holds B."""
+    R, n_songs = S + 41, 1009  # R not a multiple of any TM, n_songs prime
+    plan = tile_plan(B, S, d, itemsize, R, n_songs)
+    tn, G = plan["tn"], plan["G"]
+    assert plan["smem"] <= SMEM_LIMIT
+    assert tn == min(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
+    assert plan["rowsum"] == (itemsize == 2 and S * d > CHAIN_MAX_SD)
+    assert (plan["tm"], plan["threads"]) == TILE_CONFIGS[tn]
+    assert 1 <= plan["sc"] <= S and plan["abuf"] in (1, 2)
+    assert plan["sc"] == S or plan["abuf"] == 1  # window-row chunks restage A
+    lds = -(-d * itemsize // 32) * 32 + 16
+    assert plan["smem"] == (plan["abuf"] * (plan["tm"] + plan["sc"] - 1) * lds
+                            + QUERY_STAGES * tn * lds + G * tn * 8)
+    seen = np.zeros((B, n_songs), np.int32)
+    gx, gy = plan["grid"]
+    for x, y in itertools.product(range(gx), range(gy)):
+        seen[y * tn : (y + 1) * tn, x * G : (x + 1) * G] += 1
+    assert (seen == 1).all()
+
+
+def test_tile_plan_groups_songs():
+    """At the serving shapes a block owns several songs, and the rows it
+    rounds up to whole subtiles are few."""
+    for B, S, itemsize, R, n_songs in ((1024, 19, 2, 152, 10_000), (32, 19, 2, 152, 10_000),
+                                       (1024, 5, 1, 40, 100_000)):
+        plan = tile_plan(B, S, 128, itemsize, R, n_songs)
+        rows = plan["G"] * R
+        waste = (-(-rows // plan["tm"]) * plan["tm"] - rows) / rows
+        assert plan["G"] > 1 and waste < 0.05, plan
+        assert plan["smem"] + 1024 <= align_kernel.SM_SMEM // 2  # two blocks per SM
+    # int8 stage 1 keeps two A stages at two blocks per SM; bf16 at 64
+    # queries gives up its second A stage for the second block
+    assert tile_plan(1024, 5, 128, 1, 40, 100_000)["abuf"] == 2
+    assert tile_plan(1024, 19, 128, 2, 152, 10_000)["abuf"] == 1
+
+
+def test_tile_plan_takes_every_pr2_shape():
+    """Every (d, S) the CUDA-core kernel fitted in shared memory has a
+    tensor-core plan, and S beyond it is split into window-row chunks."""
+    for itemsize in (2, 1):
+        for d in range(4, 2049, 4):
+            for S in (1, 2, 3, 19, 33, 119, 128, 300, 1000, 5000):
+                if itemsize == 1 and S * d > INT8_MAX_SD:
+                    continue
+                if _pr2_smem(d, S, itemsize) <= SMEM_LIMIT or d <= 256:
+                    plan = tile_plan(7, S, d, itemsize, 150, 50)
+                    assert plan["smem"] <= SMEM_LIMIT
+
+
+def test_copy_bytes():
+    assert copy_bytes(256, 0, 4096) == 16
+    assert copy_bytes(24, 0, 4096) == 8
+    assert copy_bytes(12, 0, 64) == 4
+    assert copy_bytes(256, 2, 64) == 0  # a pointer off 4-byte alignment
+
+
 # ----------------------------------------------------------------- on a card
 @pytest.fixture()
 def cuda_device():
@@ -199,6 +288,11 @@ def test_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="multiple of 4"):
         align_reduce(torch.zeros(40, 6, device=cuda_device),
                      torch.zeros(2, 3, 6, device=cuda_device), 10, 3, 2)
+    # a bf16 view one element off 4-byte alignment raises instead of copying
+    flat = torch.zeros(40 * 8 + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        align_reduce(flat[1:].view(40, 8),
+                     torch.zeros(2, 3, 8, dtype=torch.bfloat16, device=cuda_device), 10, 3, 2)
 
 
 @pytest.mark.cuda
@@ -232,3 +326,104 @@ def test_kernel_int8_rejects_bad_inputs(cuda_device):
         align_reduce(flat[1:].view(40, 8), q, 10, 3, 2)  # one byte off
     with pytest.raises(TypeError):
         align_reduce(flat[:320].view(40, 8), q.float(), 10, 3, 2)
+
+
+def _card_case(rng, dtype, B, S, d, n_songs):
+    """A layout of n_songs songs at pad >= S (R not a multiple of any TM)
+    and queries [B, S, d]: unit rows and queries scaled by 1/sqrt(d) in
+    f32/bf16, +-127-scale integers in int8."""
+    pad = next(p for p in (8, 32, 128) if p >= S)
+    counts = rng.integers(2, 3 * S + 30, size=n_songs)
+    if dtype == torch.int8:
+        db, R = build_uniform_layout(
+            rng.integers(-127, 128, size=(int(counts.sum()), d)).astype(np.float32),
+            counts, pad=pad)
+        qs = rng.integers(-127, 128, size=(B, S, d)).astype(np.float32)
+        return db.astype(np.int8), qs.astype(np.int8), R
+    db, R = build_uniform_layout(_corpus(rng, counts, d), counts, pad=pad)
+    qs = (rng.standard_normal((B, S, d)) / np.sqrt(d)).astype(np.float32)
+    return db, qs, R
+
+
+def _hold_to_plain(dbt, qt, R, S, n_songs):
+    """Kernel vs plain version on the card: int8 bitwise; f32 and bf16
+    best within BEST_ATOL and argoff equal where the margin is clear."""
+    before = align_reduce.launches
+    kb, ko = align_reduce(dbt, qt, R, S, n_songs)
+    torch.cuda.synchronize()
+    assert align_reduce.launches == before + 1
+    pb, po = align_reduce_reference(dbt, qt, R, S, n_songs)
+    if dbt.dtype == torch.int8:
+        assert torch.equal(kb, pb) and torch.equal(ko, po)
+        return kb, ko
+    np.testing.assert_allclose(kb.cpu().numpy(), pb.cpu().numpy(), rtol=0, atol=BEST_ATOL)
+    want = _definition(dbt.float().cpu().numpy(), qt.float().cpu().numpy(), R, S, n_songs)
+    top2 = np.sort(want, axis=2)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > BEST_ATOL
+    np.testing.assert_array_equal(ko.cpu().numpy()[clear], po.cpu().numpy()[clear])
+    return kb, ko
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("d", [4, 12, 128])
+@pytest.mark.parametrize("S", [1, 2, 19, 32, 119])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 33, 65, 1024])
+def test_kernel_shapes_on_card(cuda_device, monkeypatch, B, S, d, dtype):
+    """Every query tile and its edges, S up to the pad, d down to 4 (K
+    zero-filled to the MMA depth), n_songs not a multiple of G (one SM
+    assumed, so that blocks group several of these few songs)."""
+    monkeypatch.setattr(align_kernel, "SMS", 1)
+    rng = np.random.default_rng(B * 1000 + S * 10 + d)
+    n_songs = 23
+    db, qs, R = _card_case(rng, dtype, B, S, d, n_songs)
+    _hold_to_plain(torch.from_numpy(db).to(cuda_device, dtype),
+                   torch.from_numpy(qs).to(cuda_device, dtype), R, S, n_songs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("B", [1, 32, 1024])
+def test_kernel_ties_on_card(cuda_device, monkeypatch, dtype, B):
+    """Exact ties go to the later offset: one window planted twice in song
+    0, at offsets 100 and 280 (R = 300: another M-subtile at TM = 64, 128
+    and 256), and once in song 1 at offset 10, in the same block as song 0.
+    All sums are exact (small integers, scaled by 1/8 for bf16); in int8
+    they pass 2^24."""
+    monkeypatch.setattr(align_kernel, "SMS", 1)
+    rng = np.random.default_rng(B)
+    S, d, R, n_songs = 19, 128, 300, 7
+    hi, scale = (127, 1) if dtype == torch.int8 else (8, 8)
+    db = (rng.integers(-hi, hi + 1, size=(n_songs * R, d)) / scale).astype(np.float32)
+    win = np.where(rng.random((S, d)) < 0.5, -hi, hi) / scale
+    qs = (rng.integers(-hi, hi + 1, size=(B, S, d)) / scale).astype(np.float32)
+    qs[0] = win
+    for row in (100, 280, R + 10):
+        db[row : row + S] = win
+    plan = tile_plan(B, S, d, 1 if dtype == torch.int8 else 2, R, n_songs)
+    if B > 1:
+        assert plan["G"] >= 2  # songs 0 and 1 share a block
+    npd = np.int8 if dtype == torch.int8 else np.float32
+    kb, ko = _hold_to_plain(torch.from_numpy(db.astype(npd)).to(cuda_device, dtype),
+                            torch.from_numpy(qs.astype(npd)).to(cuda_device, dtype),
+                            R, S, n_songs)
+    top = float((win.astype(np.float64) ** 2).sum())
+    assert kb[0, 0].item() == top and kb[0, 1].item() == np.float32(top)
+    assert ko[0, 0].item() == 280 and ko[0, 1].item() == 10
+    if dtype == torch.int8:
+        assert top > 2**24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+def test_kernel_zero_regions_on_card(cuda_device, dtype):
+    """A region of zero rows scores 0 at every offset (+0.0 or -0.0 from
+    negative query entries): best is 0 and argoff R - 1, the last offset."""
+    rng = np.random.default_rng(3)
+    S, d, n_songs, B = 19, 128, 11, 40
+    db, qs, R = _card_case(rng, dtype, B, S, d, n_songs)
+    db[3 * R : 6 * R + S] = 0  # songs 3-5 and the window rows past them
+    kb, ko = _hold_to_plain(torch.from_numpy(db).to(cuda_device, dtype),
+                            torch.from_numpy(qs).to(cuda_device, dtype), R, S, n_songs)
+    assert (kb[:, 3:6] == 0).all()
+    assert (ko[:, 3:6] == R - 1).all()
