@@ -37,6 +37,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      all 1,024 queries (bitwise) and the bf16 stage-3 launch against its
      plain version on the 256, and the same corpus with an int8 exact
      layout.
+  7. the rest of serving, through Database and the CLIs; these paths run
+     as torch ops (or on the host) and must launch no align-reduce kernel
+     where they do not reach the fast engines:
+     (a) phase 4's corpus written as a DB directory (0.61 GB of f32
+         embeddings), align engine at pad 32, 32 noisy 60 s queries (119
+         rows): the topk fallback, recall 32/32; (b) engine topk, top_k
+         100, 32 queries of 19 rows, recall 32/32; both held to the
+         native C++ core (native/seqscore.cpp, f32 on the host) on 4
+         queries;
+     (c) score_alpha 1.0 on the exhaustive engine, 256 queries, recall
+         256/256, held to the CPU alpha path on 1,000 songs;
+     (d) score_alpha 1.0 on the screened engine on phase 6's corpus, 256
+         clean queries, recall 256/256, answers equal the exhaustive
+         alpha engine's where its margin is clear;
+     (e) on phase 5's DB: matcher --visualize (16 PNGs of saliency_image's
+         shape, the default TSV), extractemb -> matchemb on both engines
+         and matcher after rebuild (the default TSV), matchfromgt (the
+         crops' songs and offsets), cppmatcher (recall 16/16).
 
 Phases 3, 4 and 6 print each kernel's time beside its bound (the larger of
 the operations over the card's published dense peak for their type and
@@ -48,22 +66,26 @@ per-song amax for bf16 and f32, and torch._int_mm of the Gram product
 a library route).
 
 Every kernel shape that is timed is held to the plain version on the
-same inputs.  Each path (phase 5's two engines, phase 6's batches) is
-driven with the kernel's launch counts set to 0 just before it and read
-just after.  The line before the last is a JSON object describing each
-kernel; the last line is {"ok": true, "device": {...}}.
+same inputs.  Each path (phase 5's two engines, phase 6's batches, phase
+7's paths) is driven with the kernel's launch counts set to 0 just before
+it and read just after; the kernels line gives each form's launches per
+path.  The line before the last is a JSON object describing each kernel;
+the last line is {"ok": true, "device": {...}}.
 """
 
 import collections
+import concurrent.futures
 import csv
 import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -71,10 +93,18 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from pfann_tpu_torch import builder, matcher  # noqa: E402
+from pfann_tpu_torch import (  # noqa: E402
+    builder,
+    cppmatcher,
+    extractemb,
+    matchemb,
+    matcher,
+    matchfromgt,
+    rebuild,
+)
 from pfann_tpu_torch.audio.io import write_wav  # noqa: E402
 from pfann_tpu_torch.data.musicdata import MusicDataset  # noqa: E402
-from pfann_tpu_torch.index import align_kernel  # noqa: E402
+from pfann_tpu_torch.index import align_kernel, native  # noqa: E402
 from pfann_tpu_torch.index.align import (  # noqa: E402
     AlignmentEngine,
     _top1,
@@ -86,7 +116,7 @@ from pfann_tpu_torch.index.align_kernel import (  # noqa: E402
     reset_launch_counts,
     zero_extended,
 )
-from pfann_tpu_torch.index.database import Database  # noqa: E402
+from pfann_tpu_torch.index.database import Database, write_index_meta  # noqa: E402
 from pfann_tpu_torch.index.embedder import Embedder  # noqa: E402
 from pfann_tpu_torch.index.screen import (  # noqa: E402
     ScreenedAlignmentEngine,
@@ -95,6 +125,7 @@ from pfann_tpu_torch.index.screen import (  # noqa: E402
     quantize_coarse_int8,
     quantize_queries_int8,
 )
+from pfann_tpu_torch.index.saliency import save_saliency_png  # noqa: E402
 from pfann_tpu_torch.models.fp_network import build_fp_network  # noqa: E402
 from pfann_tpu_torch.utils.checkpoint import save_model  # noqa: E402
 
@@ -103,13 +134,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # taken in other orders; offsets may differ only where two offsets score
 # within this of each other
 BEST_ATOL = 2e-3
+# a bf16 DB against the f32 native core: mean window scores (the port
+# tests' bf16 tolerance); song and time compared where the top-1 margin
+# exceeds it
+MEAN_ATOL = 4e-3
 # One H100 SXM, dense, from NVIDIA's data sheet: the tensor cores for bf16
 # and int8, the CUDA cores for f32 (its kernel runs there); HBM3 rate.
 PEAK_OPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_S = 3.35e12
 
 
+PHASE_START = {}  # phase -> perf_counter at its start
+
+
 def phase(n, title):
+    PHASE_START[n] = time.perf_counter()
     print("== phase %d: %s" % (n, title), flush=True)
 
 
@@ -221,15 +260,21 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def exact_scores(db, q, R, S, picks, chunk=4096):
+def exact_scores(db, q, R, S, picks, chunk=4096, alpha=0.0, row_valid=None):
     """float64 align at (b, song, offset) triples, from the definition, on
-    db's device (rows past its end read as zero)."""
+    db's device (rows past its end read as zero).  With ``alpha``, each
+    window's inner product becomes exp(-alpha (1 - ip)^2), masked by
+    row_valid [N] (the score_alpha path's definition)."""
     picks = torch.as_tensor(np.asarray(picks, np.int64).reshape(-1, 3), device=db.device)
     out = []
     for p in picks.split(chunk):
         rows = (p[:, 1] * R + p[:, 2])[:, None] + torch.arange(S, device=db.device)
-        win = db[rows.clamp(max=db.shape[0] - 1)].double() * (rows < db.shape[0])[..., None]
-        out.append((win * q[p[:, 0]].double()).sum((1, 2)))
+        inside = rows < db.shape[0]
+        rows = rows.clamp(max=db.shape[0] - 1)
+        ip = (db[rows].double() * q[p[:, 0]].double()).sum(2)
+        if alpha:
+            ip = torch.exp(-alpha * (1.0 - ip) ** 2) * row_valid[rows].double()
+        out.append((ip * inside).sum(1))
     return torch.cat(out).cpu().numpy() if out else np.zeros(0)
 
 
@@ -273,6 +318,17 @@ def compare_exact(db, q, R, S, n_songs):
 
 def launched(dtype):
     return align_reduce.launches_by_dtype[dtype]
+
+
+# launches of the align-reduce kernel per driven path, read just after the
+# path ran with the counts set to 0 just before it
+PATHS = {}
+
+
+def record(path):
+    PATHS[path] = {"bf16+f32": launched(torch.bfloat16) + launched(torch.float32),
+                   "int8": launched(torch.int8)}
+    return PATHS[path]
 
 
 def self_queries(rng, db_np, R, n_songs, S, B, d, noise=0.1):
@@ -332,9 +388,9 @@ def screen_scenario(dev, card) -> dict:
     eng = ScreenedAlignmentEngine(emb, counts, **kw)
     torch.cuda.synchronize()
     print("  corpus %.1f s; engine build %.1f s: R=%d Rc=%d n_pad=%d, resident %.1f MB "
-          "(bf16 exact layout %.1f MB + int8 coarse copy %.1f MB)" % (
+          "(bf16 exact layout %.1f MB + int8 coarse copy %.1f MB)  %s" % (
               gen_s, time.time() - tm, eng.R, eng.Rc, eng.n_pad, eng.resident_bytes() / 1e6,
-              eng._db3.numel() * 2 / 1e6, eng._coarse.numel() / 1e6), flush=True)
+              eng._db3.numel() * 2 / 1e6, eng._coarse.numel() / 1e6, card), flush=True)
 
     # 1,024 clean queries through the serving call
     f, src, off = batch(1, B, 0.1)
@@ -343,6 +399,7 @@ def screen_scenario(dev, card) -> dict:
     esc0 = eng.escalated
     song, _, t = eng.search_top1(f)
     torch.cuda.synchronize()
+    record("6: screened engine, clean batch")
     n8, n16 = launched(torch.int8), launched(torch.bfloat16)
     esc_clean = eng.escalated - esc0
     hits, right = int((song == src).sum()), int((t == off).sum())
@@ -383,9 +440,8 @@ def screen_scenario(dev, card) -> dict:
     esc0 = eng.escalated
     song_n, _, t_n = eng.search_top1(fn)
     torch.cuda.synchronize()
+    record("6: screened engine, noisy batch")
     esc_noisy = eng.escalated - esc0
-    n8 += launched(torch.int8)
-    n16 += launched(torch.bfloat16)
     if esc_noisy < 1 or launched(torch.bfloat16) < 1:
         raise AssertionError("the noisy batch escalated %d queries" % esc_noisy)
     noisy_ms = time_ms(lambda: eng.search_top1(fn), 1)
@@ -394,11 +450,13 @@ def screen_scenario(dev, card) -> dict:
     q3 = torch.from_numpy(fn).to(dev, torch.bfloat16)
     err3, nbad3, _ = compare(db3, q3, eng.R, S, eng.n_pad)
     s3_ms = time_ms(lambda: align_reduce(db3, q3, eng.R, S, eng.n_pad), 3)
+    s3_plain_ms = time_ms(lambda: align_reduce_reference(db3, q3, eng.R, S, eng.n_pad), 1)
     s3_lib_ms = conv_library_ms(db3, q3, eng.R, S, eng.n_pad, 1)
     s3_bound = bound(torch.bfloat16, db3.shape[0], d, S, 256, eng.n_pad, eng.R)
-    print("  stage 3 (bf16 kernel, 256 queries, R=%d): %.3f ms, conv1d %.3f ms, %s; "
-          "vs plain max|dbest| %.2e, argoff ties %d  %s" % (
-              eng.R, s3_ms, s3_lib_ms, fmt_bound(s3_bound), err3, nbad3, card), flush=True)
+    print("  stage 3 (bf16 kernel, 256 queries, R=%d): %.3f ms, plain %.3f ms, conv1d %.3f "
+          "ms, %s; vs plain max|dbest| %.2e, argoff ties %d  %s" % (
+              eng.R, s3_ms, s3_plain_ms, s3_lib_ms, fmt_bound(s3_bound), err3, nbad3, card),
+          flush=True)
     del eng, qd, qc8, db3, q3
     torch.cuda.empty_cache()
     full = AlignmentEngine(emb, counts, score_dtype=torch.bfloat16, device=dev)
@@ -426,7 +484,7 @@ def screen_scenario(dev, card) -> dict:
     build8_s = time.time() - tm
     reset_launch_counts()
     song8, _, t8 = eng8.search_top1(f)
-    n8 += launched(torch.int8)
+    record("6: screened engine, int8 exact layout")
     hits8, right8 = int((song8 == src).sum()), int((t8 == off).sum())
     if hits8 != B or right8 != B:
         raise AssertionError("int8 exact layout: recall %d/%d, offsets %d/%d"
@@ -438,9 +496,304 @@ def screen_scenario(dev, card) -> dict:
               B / (ms8 / 1e3), card), flush=True)
     del eng8
     torch.cuda.empty_cache()
-    return {"launches_int8": n8, "launches_bf16": n16, "max_abs_err": err8, "bf16_err": err3,
+    return {"max_abs_err": err8, "bf16_err": err3,
             "ms": s1_ms, "plain_ms": s1_plain_ms, "library_ms": s1_lib_ms,
-            "bound": s1_bound}
+            "bound": s1_bound, "corpus": (emb, counts)}
+
+
+def png_pixels(path):
+    """The pixels [H, W, 3] uint8 of an 8-bit RGB PNG whose rows all use
+    filter 0 (the port's writer), decoded with zlib."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("%s is not a PNG" % path)
+    chunks, pos = collections.defaultdict(bytes), 8
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        chunks[kind] += data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    if depth != 8 or color != 2 or raw[:, 0].any():
+        raise AssertionError("%s: depth %d colour %d, filters %s"
+                             % (path, depth, color, set(raw[:, 0].tolist())))
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def hold_to_native(db, queries, emb, song_pos, n=4):
+    """The port's answers for queries[:n] against the native C++ core (f32
+    on the host, independent of the port's engines) at the DB's top_k:
+    the best mean score within MEAN_ATOL, song and time equal where the
+    core's top-1 margin exceeds it.  The core's queries run on n threads
+    (ctypes releases the GIL).  Returns (#held, max |score diff|)."""
+    queries = list(queries[:n])
+    with concurrent.futures.ThreadPoolExecutor(n) as pool:
+        natives = list(pool.map(lambda q: native.native_query(
+            emb, song_pos, q, db.top_k, db.frame_shift_mul, db.score_alpha), queries))
+    held, err = 0, 0.0
+    scale = db.hop_size / db.frame_shift_mul
+    for (score, (song, t), _), (best, table) in zip(db.query_embeddings_batch(queries),
+                                                   natives):
+        err = max(err, abs(score - float(table[best, 0])))
+        if err > MEAN_ATOL:
+            raise AssertionError("port %g vs native core %g" % (score, table[best, 0]))
+        top2 = np.sort(table[:, 0])[-2:]
+        if top2[1] - top2[0] > MEAN_ATOL:
+            if (song, t) != (best, float(table[best, 1]) * scale):
+                raise AssertionError("port (%d, %g) vs native core (%d, %g)" % (
+                    song, t, best, table[best, 1] * scale))
+            held += 1
+    if held == 0:
+        raise AssertionError("no query had a clear margin against the native core")
+    return held, err
+
+
+def rest_of_serving(dev, card, tmp, emb4, big, p5):
+    """Phase 7: the long-query fallback, the topk engine and score_alpha
+    through Database on phase 4's corpus as a DB directory, score_alpha on
+    the screened engine on phase 6's corpus, and the side CLIs and
+    saliency on phase 5's DB (p5: its qlist, db_dir, default TSV, truth)."""
+    phase(7, "the rest of serving: topk engine, long-query fallback, score_alpha, "
+             "saliency, side CLIs")
+    per, hop = 120, 0.5
+    n_songs, d = emb4.shape[0] // per, emb4.shape[1]
+    counts = np.full(n_songs, per, np.int32)
+    song_pos = np.pad(np.cumsum(counts, dtype=np.int64), (1, 0))
+    db_dir = os.path.join(tmp, "db10k")
+    os.makedirs(db_dir)
+    emb4.tofile(os.path.join(db_dir, "embeddings"))
+    counts.tofile(os.path.join(db_dir, "landmarkKey"))
+    with open(os.path.join(db_dir, "songList.txt"), "w") as fh:
+        fh.writelines("song%05d.wav\n" % i for i in range(n_songs))
+    write_index_meta(db_dir, d=d, meta={"ntotal": int(emb4.shape[0])})
+    print("  DB directory: %d songs x %d rows, d=%d, %.3f GB of f32 embeddings" % (
+        n_songs, per, d, emb4.nbytes / 1e9), flush=True)
+
+    def crops(corpus, seed, n, S, noise=0.1):
+        """n noisy self-crops of S rows, renormalised; (queries, song, row)."""
+        r = np.random.default_rng(seed)
+        n_s = corpus.shape[0] // per
+        src, off = r.integers(0, n_s, size=n), r.integers(0, per - S + 1, size=n)
+        q = corpus[(src * per + off)[:, None] + np.arange(S)]
+        q += noise * r.standard_normal(q.shape, dtype=np.float32)
+        q /= np.linalg.norm(q, axis=2, keepdims=True)
+        return q, src, off
+
+    def serve(params, queries, src, off, path):
+        """Database(params).query_top1_batch: once with the launch counts
+        at 0 (recall, offsets), then once timed.  Returns (db, ms)."""
+        db = Database(db_dir, params, hop, dev)
+        qs = list(queries)
+        reset_launch_counts()
+        ans = db.query_top1_batch(qs)
+        torch.cuda.synchronize()
+        n = record(path)
+        if n["bf16+f32"] or n["int8"]:
+            raise AssertionError("%s launched align_reduce: %s" % (path, n))
+        song = np.array([a[1][0] for a in ans])
+        t = np.array([a[1][1] for a in ans])
+        hits, right = int((song == src).sum()), int((t == off * hop).sum())
+        if hits != len(qs) or right != len(qs):
+            raise AssertionError("%s: recall %d/%d, offsets %d/%d"
+                                 % (path, hits, len(qs), right, len(qs)))
+        tm = time.perf_counter()
+        db.query_top1_batch(qs)
+        torch.cuda.synchronize()
+        return db, (time.perf_counter() - tm) * 1e3
+
+    # (a) 60 s MIREX queries (119 rows at a 0.5 s hop) on the align engine
+    # at pad 32: the topk fallback
+    qa, src, off = crops(emb4, 71, 32, 119)
+    db, ms_a = serve({"top_k": 100}, qa, src, off, "7a: long-query fallback, align pad 32")
+    if db.engine != "align":
+        raise AssertionError("7a served by the %s engine" % db.engine)
+    held, err = hold_to_native(db, qa, emb4, song_pos)
+    print("  (a) 32 queries of 119 rows, align engine at pad 32 -> topk fallback "
+          "(top_k 100): recall 32/32, offsets 32/32, align_reduce launches 0; "
+          "%.3f ms per 32 queries; == native C++ core on %d/4 (max |dscore| %.2e)  %s"
+          % (ms_a, held, err, card), flush=True)
+    del db
+    torch.cuda.empty_cache()
+
+    # (b) engine: topk on 10 s queries
+    qb, src, off = crops(emb4, 72, 32, 19)
+    db, ms_b = serve({"top_k": 100, "engine": "topk"}, qb, src, off, "7b: engine topk")
+    held, err = hold_to_native(db, qb, emb4, song_pos)
+    print("  (b) engine topk, top_k 100, 32 queries of 19 rows: recall 32/32, "
+          "align_reduce launches 0; %.3f ms per 32 queries; == native C++ core on "
+          "%d/4 (max |dscore| %.2e)  %s" % (ms_b, held, err, card), flush=True)
+    del db
+    torch.cuda.empty_cache()
+
+    # (c) score_alpha 1.0 on the exhaustive engine
+    qc, src, off = crops(emb4, 73, 256, 19)
+    db, ms_c = serve({"top_k": 100, "score_alpha": 1.0}, qc, src, off,
+                     "7c: score_alpha 1.0, exhaustive engine")
+    del db
+    torch.cuda.empty_cache()
+    # held to the CPU alpha path on 1,000 songs of the same DB, for the
+    # first 128 queries (the CPU side's time grows with both)
+    tm = time.perf_counter()
+    n_cpu, qh = min(1000, n_songs), qc[:128]
+    eng = {dv: AlignmentEngine(emb4[: n_cpu * per], counts[:n_cpu], score_dtype=torch.bfloat16,
+                               device=dv, score_alpha=1.0) for dv in (dev, "cpu")}
+    (gb, go), = eng[dev].search_device(qh)
+    (cb, co), = eng["cpu"].search_device(qh)
+    cpu_s = time.perf_counter() - tm
+    err_c = float((gb.cpu() - cb).abs().max())
+    if err_c > BEST_ATOL:
+        raise AssertionError("alpha path: card vs CPU max|dbest| %g" % err_c)
+    bad = (go.cpu() != co).nonzero().numpy()
+    if len(bad):
+        b, s = bad[:, 0], bad[:, 1]
+        qd = torch.from_numpy(qh).to(dev, torch.bfloat16)
+        e = eng[dev]
+        a = exact_scores(e._db, qd, e.R, 19, np.stack([b, s, go.cpu().numpy()[b, s]], 1),
+                         alpha=1.0, row_valid=e._row_valid)
+        p = exact_scores(e._db, qd, e.R, 19, np.stack([b, s, co.numpy()[b, s]], 1),
+                         alpha=1.0, row_valid=e._row_valid)
+        if np.abs(a - p).max() > BEST_ATOL:
+            raise AssertionError("alpha path: argoff differs where the margin exceeds %g"
+                                 % BEST_ATOL)
+    print("  (c) score_alpha 1.0, exhaustive engine, 256 queries of 19 rows: recall "
+          "256/256, align_reduce launches 0; %.3f ms per 256 queries; card == CPU alpha "
+          "path on %d songs x 128 queries (max|dbest| %.2e, argoff ties %d; CPU side %.1f s)  %s"
+          % (ms_c, n_cpu, err_c, len(bad), cpu_s, card), flush=True)
+    del eng, gb, go
+    torch.cuda.empty_cache()
+
+    # (d) score_alpha 1.0 on the screened engine, phase 6's corpus
+    emb, counts100 = big
+    qd, src, off = crops(emb, 74, 256, 19)
+    tm = time.perf_counter()
+    eng = ScreenedAlignmentEngine(emb, counts100, pad=32, k=4, top_m=32,
+                                  score_dtype=torch.bfloat16, coarse_dtype="int8",
+                                  device=dev, rescue_threshold=0.4, score_alpha=1.0)
+    build_s = time.perf_counter() - tm
+    reset_launch_counts()
+    song, _, t = eng.search_top1(qd)
+    torch.cuda.synchronize()
+    n = record("7d: score_alpha 1.0, screened engine")
+    hits, right = int((song == src).sum()), int((t == off).sum())
+    if hits != 256 or right != 256 or n["int8"] < 1 or n["bf16+f32"]:
+        raise AssertionError("7d: recall %d/256, offsets %d/256, launches %s"
+                             % (hits, right, n))
+    ms_d = time_ms(lambda: eng.search_top1(qd), 3)
+    del eng
+    torch.cuda.empty_cache()
+    full = AlignmentEngine(emb, counts100, score_dtype=torch.bfloat16, device=dev,
+                           score_alpha=1.0)
+    reset_launch_counts()
+    tm = time.perf_counter()
+    (fb, fo), = full.search_device(qd)
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - tm) * 1e3
+    record("7d: score_alpha 1.0, exhaustive engine at 100k songs")
+    top2 = fb.topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > BEST_ATOL).cpu().numpy()
+    fsong, _, ft = (x.cpu().numpy() for x in _top1(fb, fo, full.pad))
+    same = (song == fsong) & (t == ft)
+    if not same[clear].all() or not clear.any():
+        raise AssertionError("7d: %d answers differ from the exhaustive alpha engine's "
+                             "where its margin is clear (%d clear)"
+                             % (int((~same[clear]).sum()), int(clear.sum())))
+    print("  (d) score_alpha 1.0, screened engine at %d songs (build %.1f s), 256 clean "
+          "queries: recall 256/256, int8 launches %d, bf16 0; %.3f ms per 256 queries; "
+          "== the exhaustive alpha engine on %d/%d with a clear margin (it takes "
+          "%.3f ms)  %s" % (len(counts100), build_s, n["int8"], ms_d, int(same[clear].sum()),
+                             int(clear.sum()), full_ms, card), flush=True)
+    del full, fb, fo
+    torch.cuda.empty_cache()
+
+    # (e) the side CLIs and saliency on phase 5's DB, back on the align engine
+    qlist, p5db, want = p5["qlist"], p5["db_dir"], open(p5["tsv"], "rb").read()
+    cfg_path = os.path.join(p5db, "configs.json")
+    out = os.path.join(tmp, "out7")
+
+    def set_screen(on):
+        with open(cfg_path) as fh:
+            params = json.load(fh)
+        params["indexer"]["screen"] = on
+        with open(cfg_path, "w") as fh:
+            json.dump(params, fh, indent=2)
+        return params
+
+    def run(path, fn, argv, tsv=None):
+        reset_launch_counts()
+        tm = time.perf_counter()
+        fn([fn.__module__.rsplit(".", 1)[-1], *argv])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - tm
+        n = record(path)
+        if tsv is not None and open(tsv, "rb").read() != want:
+            raise AssertionError("%s: TSV differs from phase 5's matcher TSV" % path)
+        return sec, n
+
+    params = set_screen(False)
+    viz = os.path.join(out, "viz", "result.txt")
+    viz_s, _ = run("7e: matcher --visualize", matcher.main,
+                   [qlist, p5db, viz, "--visualize", "--device", "cuda"], tsv=viz)
+    embedder = Embedder(params, os.path.join(p5db, "model.msgpack"), dev)
+    queries = list(MusicDataset(qlist, params))
+    for _, name, segs in queries:
+        img = png_pixels(os.path.join(os.path.dirname(viz), os.path.basename(name) + ".png"))
+        want_shape = (embedder.model.F, segs.shape[0] * embedder.model.T, 3)
+        if img.shape != want_shape or not img.any():
+            raise AssertionError("%s.png: %s, saliency_image %s" % (name, img.shape, want_shape))
+    sal_dir = os.path.join(out, "saliency")
+    os.makedirs(sal_dir)
+    embedder.embed_with_saliency(queries[0][2])  # warm-up
+    tm = time.perf_counter()
+    for _, name, segs in queries:
+        _, grads, specs = embedder.embed_with_saliency(segs)
+        save_saliency_png(sal_dir, name, grads, specs)
+    sal_ms = (time.perf_counter() - tm) * 1e3 / len(queries)
+    print("  matcher --visualize: %d PNGs decode to saliency_image's shape %s, TSV == the "
+          "default mode's (%.2f s); saliency %.3f ms per query of %d segments  %s" % (
+              len(queries), want_shape, viz_s, sal_ms, queries[0][2].shape[0], card),
+          flush=True)
+
+    emb_dir = os.path.join(out, "qemb")
+    run("7e: extractemb", extractemb.main, [qlist, p5db, emb_dir, "--device", "cuda"])
+    res = os.path.join(out, "matchemb_align.txt")
+    _, n_align = run("7e: matchemb, align engine", matchemb.main,
+                     [emb_dir, p5db, res, "--device", "cuda"], tsv=res)
+    set_screen(True)
+    res = os.path.join(out, "matchemb_screen.txt")
+    _, n_screen = run("7e: matchemb, screened engine", matchemb.main,
+                      [emb_dir, p5db, res, "--device", "cuda"], tsv=res)
+    set_screen(False)
+    rebuild.main(["rebuild", p5db])
+    res = os.path.join(out, "rebuilt.txt")
+    run("7e: matcher after rebuild", matcher.main, [qlist, p5db, res, "--device", "cuda"],
+        tsv=res)
+    print("  extractemb -> matchemb TSVs == matcher's (align engine: %d bf16 launches; "
+          "screen: true: %d int8); rebuild, then matcher: the same TSV" % (
+              n_align["bf16+f32"], n_screen["int8"]), flush=True)
+
+    gt = os.path.join(out, "gt.tsv")
+    with open(gt, "w") as fh:
+        fh.writelines("%s\t%s\n" % (os.path.splitext(os.path.basename(q))[0],
+                                    os.path.splitext(os.path.basename(s))[0])
+                      for q, s, _ in p5["truth"])
+    res = os.path.join(out, "fromgt.csv")
+    run("7e: matchfromgt", matchfromgt.main, [qlist, gt, p5db, res, "--device", "cuda"])
+    with open(res) as fh:
+        rows = list(csv.reader(fh))[1:]
+    got = [(r[0], r[1], float(r[3])) for r in rows]
+    if got != [tuple(x) for x in p5["truth"]]:
+        raise AssertionError("matchfromgt: %s" % got[:4])
+    res = os.path.join(out, "cpp.txt")
+    cpp_s, _ = run("7e: cppmatcher", cppmatcher.main, [qlist, p5db, res, "--device", "cuda"])
+    with open(res) as fh:
+        answers = [ln.rstrip("\n").split("\t")[1] for ln in fh]
+    hits = sum(a == s for a, (_, s, _) in zip(answers, p5["truth"]))
+    if hits != len(p5["truth"]):
+        raise AssertionError("cppmatcher recall %d/%d" % (hits, len(p5["truth"])))
+    print("  matchfromgt: %d rows, answers and times == the crops' (hop-aligned); "
+          "cppmatcher (native matcher binary): recall %d/%d (%.2f s)  %s" % (
+              len(rows), hits, len(p5["truth"]), cpp_s, card), flush=True)
 
 
 def main() -> None:
@@ -464,9 +817,17 @@ def main() -> None:
     # ---------------------------------------------------------------- 2
     phase(2, "build")
     tm = time.time()
-    lib = align_kernel.build()
-    print("built %s in %.2f s (cached=%s)" % (
-        os.path.relpath(lib, REPO), time.time() - tm, align_kernel.build_info["cached"]))
+    # the native C++ core (g++, phase 7's reference and cppmatcher's
+    # binary) builds beside nvcc
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        native_builds = [pool.submit(native.lib_path), pool.submit(native.matcher_binary)]
+        lib = align_kernel.build()
+        print("built %s in %.2f s (cached=%s)  %s" % (
+            os.path.relpath(lib, REPO), time.time() - tm, align_kernel.build_info["cached"],
+            card))
+        for fut in native_builds:
+            print("built %s (g++) by %.2f s  %s" % (os.path.relpath(fut.result(), REPO),
+                                                     time.time() - tm, card))
     for name, line in ptxas_report(align_kernel.build_info.get("log", "")):
         print("  ptxas %-18s %s" % (name, line))
     sass = sass_tensor_core_counts(lib)
@@ -596,7 +957,7 @@ def main() -> None:
     print("  B=32: kernel %.3f ms, plain %.3f ms (one chunk), conv1d %.3f ms, %s; vs plain "
           "max|dbest| %.2e, argoff ties %d  %s" % (
               k32, p32, lib32, fmt_bound(bound32), err32, nbad32, card), flush=True)
-    del engine, q, qb, emb
+    del engine, q, qb  # the corpus serves phase 7 as a DB directory
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 5
@@ -647,7 +1008,7 @@ def main() -> None:
         matcher.main(["matcher", qlist, db_dir, res1, "--top1", "--device", "cuda"])
         torch.cuda.synchronize()
         match_s = time.time() - tm
-        launches = launched(torch.bfloat16) + launched(torch.float32)
+        launches = record("5: builder + matcher x2, align engine")["bf16+f32"]
         print("  builder %.2f s, matcher x2 %.2f s, kernel launches %d  %s" % (
             build_s, match_s, launches, card))
         if launches <= 0:
@@ -724,9 +1085,9 @@ def main() -> None:
         matcher.main(["matcher", qlist, db_dir, res_s1, "--top1", "--device", "cuda"])
         torch.cuda.synchronize()
         screen_s = time.time() - tm
+        record("5: matcher x2, screened engine")
         launches_int8 = launched(torch.int8)
         screen_bf16 = launched(torch.bfloat16)
-        launches += screen_bf16
         print("  screened matcher x2 %.2f s, int8 launches %d, bf16 (rescue) launches "
               "%d  %s" % (screen_s, launches_int8, screen_bf16, card))
         if launches_int8 <= 0:
@@ -738,17 +1099,25 @@ def main() -> None:
                                      % os.path.basename(path))
         print("  screened TSVs (default, --top1) == the align engine's TSV")
 
-    shot = screen_scenario(dev, card)
-    launches_int8 += shot["launches_int8"]
-    launches += shot["launches_bf16"]
-    max_err = max(max_err, shot["bf16_err"])
+        shot = screen_scenario(dev, card)
+        max_err = max(max_err, shot["bf16_err"])
+        rest_of_serving(dev, card, tmp, emb, shot.pop("corpus"),
+                        dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth))
 
+    # every driven path's launches, phases 5-7 (0 where a path runs none)
+    launches = sum(p["bf16+f32"] for p in PATHS.values())
+    launches_int8 = sum(p["int8"] for p in PATHS.values())
+    ends = [*list(PHASE_START.values())[1:], time.perf_counter()]
+    print("wall s per phase: %s  %s" % (", ".join(
+        "%d: %.1f" % (n, e - t0) for (n, t0), e in zip(PHASE_START.items(), ends)), card),
+        flush=True)
     print(json.dumps({"kernels": [{
         "name": "align_reduce",
         "route": "cuda",
         "source": "pfann_tpu_torch/csrc/align_reduce.cu",
         "replaces": "pfann_tpu/index/pallas_align.py:45",
         "launches": launches,
+        "launches_by_path": {k: v["bf16+f32"] for k, v in PATHS.items()},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -761,6 +1130,7 @@ def main() -> None:
         "source": "pfann_tpu_torch/csrc/align_reduce.cu",
         "replaces": "pfann_tpu/index/pallas_align.py:49",
         "launches": launches_int8,
+        "launches_by_path": {k: v["int8"] for k, v in PATHS.items()},
         "max_abs_err": max(int8_err, shot["max_abs_err"]),
         "ms": shot["ms"],
         "plain_ms": shot["plain_ms"],

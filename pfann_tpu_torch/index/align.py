@@ -20,8 +20,13 @@ take the kernel's int32 path, as the JAX int8 branch does
 (``pfann_tpu/index/align.py:175-182``).
 
 ``score_alpha != 0`` (exp(-alpha (1 - ip)^2) per window before the sum)
-needs the per-window score slices: it runs on the plain path on CPU and
-raises NotImplementedError on CUDA (ROADMAP: score_alpha on CUDA).
+needs the per-window score slices, which the kernel never forms: on CPU
+and CUDA alike it runs as torch ops (``align_kernel.window_reduce``: a
+matmul to per-window scores, chunked over the batch by a byte cap, the
+masked transform per window slice, the diagonal sum, the per-song max and
+last-offset argmax), JAX's XLA alpha path (``pfann_tpu/index/align.py:
+184-207``) in f32 sums of operands rounded to the layout dtype.  It
+launches no align-reduce kernel.
 """
 
 from __future__ import annotations
@@ -31,17 +36,12 @@ import torch
 
 from pfann_tpu_torch.index.align_kernel import (
     align_reduce,
-    align_reduce_reference,
+    window_reduce,
     zero_extended,
 )
 
 DEFAULT_PAD = 32  # supports query windows up to 32 segments (> 10 s default)
 MAX_BATCH = 1024  # filters per dispatch; bounds the [B, n_songs] outputs
-
-_ALPHA_ON_CUDA = (
-    "score_alpha != 0 is not ported to CUDA yet (ROADMAP: score_alpha on "
-    "CUDA); it runs on the CPU plain path only"
-)
 
 
 def build_uniform_layout(
@@ -120,11 +120,19 @@ def alignment_core(
     song_argoff [B, n_songs] int32 — best window offset within the region,
     i.e. t + pad; ties go to the larger offset)."""
     if score_alpha != 0.0:
-        if db.device.type != "cpu":
-            raise NotImplementedError(_ALPHA_ON_CUDA)
+        check_device(db.device)
+        if queries.device != db.device:
+            raise ValueError("alignment_core: db on %s, queries on %s"
+                             % (db.device, queries.device))
         window = _alpha_window(score_alpha, row_valid, q_valid, n_songs * R + S - 1)
-        return align_reduce_reference(db, queries, R, S, n_songs, window)
+        return window_reduce(db, queries, R, S, n_songs, window)
     return align_reduce(db, queries, R, S, n_songs)
+
+
+def check_device(device: torch.device) -> None:
+    """The engines run on a CUDA card or, when asked, on the CPU."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError("unsupported device %s (cuda or cpu)" % device)
 
 
 def _top1(best: torch.Tensor, argoff: torch.Tensor, pad: int):
@@ -151,9 +159,8 @@ class AlignmentEngine:
         score_alpha: float = 0.0,
     ):
         self.device = torch.device(device)
+        check_device(self.device)
         self.score_alpha = float(score_alpha)
-        if self.score_alpha != 0.0 and self.device.type != "cpu":
-            raise NotImplementedError(_ALPHA_ON_CUDA)
         db, R = build_uniform_layout(embeddings, counts, pad)
         self.pad = pad
         self.R = R

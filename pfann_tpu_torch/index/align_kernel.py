@@ -221,18 +221,25 @@ def reduce_per_song(align: torch.Tensor, n_songs: int, R: int):
 
 def align_reduce_reference(
     db: torch.Tensor, queries: torch.Tensor, R: int, S: int, n_songs: int,
-    window=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: matmul to [N, S, B] (chunked
     over B), the diagonal sum over window rows, then the per-song max and
     last-index argmax.  Same contract as :func:`align_reduce`.  Float
     inputs compute in f32; int8 inputs in f64, where every product and sum
     of int8 values is an exact integer (an f32 sum stops being exact past
-    2^24), so best and argoff equal the kernel's int32 ones bit for bit.
+    2^24), so best and argoff equal the kernel's int32 ones bit for bit."""
+    return window_reduce(db, queries, R, S, n_songs)
 
-    ``window(i, ip, batch)`` (optional) maps window row i's inner products
-    ip [n_songs*R, n], for the queries ``batch`` (a slice of B), to what
-    that row adds to the sum; the kernel has no such hook."""
+
+def window_reduce(
+    db: torch.Tensor, queries: torch.Tensor, R: int, S: int, n_songs: int,
+    window=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's steps, with a hook: ``window(i, ip, batch)``
+    (optional) maps window row i's inner products ip [n_songs*R, n], for
+    the queries ``batch`` (a slice of B), to what that row adds to the sum.
+    The kernel has no such hook; the score_alpha path (``index/align.py``)
+    runs through this on any device."""
     d = db.shape[1]
     B = queries.shape[0]
     N0 = n_songs * R

@@ -10,13 +10,16 @@ The DB directory is the JAX package's, byte for byte:
     <db>/model.msgpack    flax-format params (utils/checkpoint.py reads it)
     <db>/index_meta.json  search settings (d, ntotal, align_pad)
 
-Engines: the exhaustive alignment engine (``engine="align"``) and the
+Engines: the exhaustive alignment engine (``engine="align"``), the
 screened engine (``engine="screen"``, ``screen: true``, or ``screen:
 "auto"`` at 30,000 songs or more, as in the JAX package), which honours the
 indexer keys ``screen_pool_k``, ``screen_top_m``, ``screen_coarse_dtype``,
 ``screen_exact_dtype``, ``screen_rescue`` (default 0.4; 0/false disables)
-and ``backend``.  The topk engine, the sharded engine, and queries longer
-than the layout pad raise NotImplementedError naming their ROADMAP item.
+and ``backend``, and the topk engine (``engine="topk"``: top-k per query
+row, then the sequence rerank, ``index/search.py``).  A query with more
+windows than the fast engines' layout pad is served by the topk engine,
+with one warning per length, as in the JAX package.  The sharded engine
+raises NotImplementedError (ROADMAP: multi-GPU).
 """
 
 from __future__ import annotations
@@ -34,7 +37,11 @@ from pfann_tpu_torch.index.align import (
     queries_to_filters,
 )
 from pfann_tpu_torch.index.screen import ScreenedAlignmentEngine
-from pfann_tpu_torch.index.search import bucket_windows, finalize_song_scores
+from pfann_tpu_torch.index.search import (
+    TopkEngine,
+    bucket_windows,
+    finalize_song_scores,
+)
 from pfann_tpu_torch.utils.config import read_file_list
 from pfann_tpu_torch.utils.logging import get_logger
 
@@ -71,6 +78,7 @@ class Database:
         counts = np.fromfile(os.path.join(dir_for_db, "landmarkKey"), dtype=np.int32)
         if len(self.songList) != counts.shape[0]:
             raise ValueError("songList.txt and landmarkKey disagree on the song count")
+        self.top_k = int(self.params["top_k"])
         self.song_pos = np.pad(np.cumsum(counts, dtype=np.int64), (1, 0))
 
         meta_path = os.path.join(dir_for_db, INDEX_META_NAME)
@@ -100,11 +108,8 @@ class Database:
             screen is True or (screen == "auto" and len(counts) >= 30_000)
         ):
             engine = "screen"
-        if engine not in ("align", "screen"):
-            raise NotImplementedError(
-                "engine=%r is not ported (ROADMAP: the %s engine); the port "
-                "serves engine='align' and 'screen'" % (engine, engine)
-            )
+        if engine not in ("align", "screen", "topk"):
+            raise ValueError("unknown engine %r (align, screen or topk)" % (engine,))
         if self.params.get("sharded", False):
             raise NotImplementedError(
                 "sharded search is not ported (ROADMAP: multi-GPU)"
@@ -119,7 +124,15 @@ class Database:
         )
         dtype = (torch.bfloat16 if self.params.get("db_dtype", "bfloat16")
                  == "bfloat16" else torch.float32)
-        if engine == "align":
+        self._device, self._dtype, self._emb_host = device, dtype, emb
+        self._topk = None  # built at first use (the fast engines' fallback)
+        self._fallback_logged: set = set()
+        if engine == "topk":
+            if self.params.get("backend", "auto") == "approx":
+                logger.info("topk backend 'approx' (approx_max_k, a TPU op): "
+                            "this engine takes the exact top-k")
+            self._topk_engine()
+        elif engine == "align":
             self._align = AlignmentEngine(
                 emb, counts, score_dtype=dtype, device=device,
                 pad=self.align_pad or DEFAULT_PAD, score_alpha=self.score_alpha,
@@ -140,15 +153,34 @@ class Database:
             )
         logger.info("score alpha: %d", self.score_alpha)
 
-    def _check_len(self, n_rows: int) -> None:
-        sub_len = -(-n_rows // self.frame_shift_mul)
-        if sub_len > self._align.max_query_windows():
-            raise NotImplementedError(
-                "query with %d windows exceeds the %d-window layout pad; the "
-                "topk fallback engine is not ported (ROADMAP: the topk "
-                "engine) — build or load with indexer align_pad >= %d"
-                % (sub_len, self._align.max_query_windows(), sub_len)
+    def _topk_engine(self) -> TopkEngine:
+        """The flat-matrix topk engine, uploaded at first use."""
+        if self._topk is None:
+            self._topk = TopkEngine(
+                self._emb_host, self.song_pos, top_k=self.top_k,
+                frame_shift_mul=self.frame_shift_mul, score_alpha=self.score_alpha,
+                score_dtype=self._dtype, device=self._device,
             )
+        return self._topk
+
+    def _use_align(self, n_rows: int) -> bool:
+        """Whether a query of n_rows rows fits the fast engine's layout pad;
+        a longer one is served by the topk engine, logged once per length."""
+        if self.engine == "topk":
+            return False
+        sub_len = -(-n_rows // self.frame_shift_mul)
+        max_windows = self._align.max_query_windows()
+        if sub_len <= max_windows:
+            return True
+        if sub_len not in self._fallback_logged:
+            self._fallback_logged.add(sub_len)
+            get_logger().warning(
+                "query with %d windows exceeds the %s engine's %d-window layout "
+                "pad; serving via the topk fallback engine (build/load with "
+                "indexer align_pad >= %d to keep it on the fast path)",
+                sub_len, self.engine, max_windows, sub_len,
+            )
+        return False
 
     def _filters(self, queries):
         """Per-shift filters of every query, zero-padded to one bucketed
@@ -202,8 +234,10 @@ class Database:
         """Many queries scored in one engine call (full per-song tables)."""
         if not queries:
             return []
-        self._check_len(max(q.shape[0] for q in queries))
-        song_max, song_time = self._query_align_batch(queries)
+        if self._use_align(max(q.shape[0] for q in queries)):
+            song_max, song_time = self._query_align_batch(queries)
+        else:
+            song_max, song_time = self._topk_engine().search(queries)
         return [
             finalize_song_scores(
                 song_max[i], song_time[i], self.hop_size, self.frame_shift_mul
@@ -215,15 +249,16 @@ class Database:
         self, queries: Sequence[np.ndarray]
     ) -> list[tuple[float, tuple[int, float]]]:
         """Serving fast path: the best (score, (song_id, time_s)) per query;
-        only [B]-sized answers leave the device.  score_alpha takes the
-        full-table path, as in the JAX package."""
+        only [B]-sized answers leave the device.  score_alpha, the topk
+        engine and queries longer than the layout pad take the full-table
+        path, as in the JAX package."""
         if not queries:
             return []
         if self.ntotal == 0:
             return [(-float("inf"), (-1, 0.0))] * len(queries)
-        if self.score_alpha != 0.0:
+        if (self.score_alpha != 0.0
+                or not self._use_align(max(q.shape[0] for q in queries))):
             return [r[:2] for r in self.query_embeddings_batch(queries)]
-        self._check_len(max(q.shape[0] for q in queries))
         fsm = self.frame_shift_mul
         B = len(queries)
         scale = self.hop_size / fsm

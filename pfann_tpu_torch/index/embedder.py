@@ -1,11 +1,14 @@
 """Waveform -> fingerprint embedding pipeline (port of
-``pfann_tpu/index/embedder.py``, without the saliency path).
+``pfann_tpu/index/embedder.py``).
 
 Mel front-end and encoder run as one call per chunk on the chosen device.
 PyTorch has no recompile cost, so chunks are NOT padded to fixed shapes
 (the JAX package pads to ``bucket_tail_rows`` to reuse compiled
 programs): every call runs on exactly the rows it was given.  Each row's
 embedding does not depend on the rows batched with it.
+
+``embed_with_saliency`` is JAX's ``jax.vjp`` through the model as
+``torch.autograd.grad`` with the embedding itself as the cotangent.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ class Embedder:
         self.device = torch.device(device)
         self.model = build_fp_network(params, compute_dtype=compute_dtype)
         self.model.load_state_dict(ckpt.load_model(model_path))
-        self.model.to(self.device).eval()
+        self.model.to(self.device).eval().requires_grad_(False)
         self.mel = build_mel_spec_layer(params).to(self.device)
         self.chunk = chunk
         self.d = self.model.d
@@ -56,6 +59,39 @@ class Embedder:
             for i in range(0, wav.shape[0], self.chunk)
         ]
         return torch.cat(outs).cpu().numpy()
+
+    def _saliency_frames(self, frames: torch.Tensor):
+        """[n, segment_size] f32 on device -> (z [n, d] L2-normalized, dg
+        [n, F, T] gradient of ||z||^2 / 2 at the mel input, g [n, F, T]
+        the mel input).  Reference matcher.py:118-128: the forward runs
+        with norm=False and the cotangent is z."""
+        with torch.no_grad():
+            g = self.mel(frames)
+        with torch.enable_grad():
+            g.requires_grad_(True)
+            z = self.model(g, norm=False)
+            (dg,) = torch.autograd.grad(z, g, grad_outputs=z.detach())
+        z = z.detach()
+        z = z / torch.clamp(torch.linalg.vector_norm(z, dim=1, keepdim=True), min=1e-12)
+        return z, dg, g.detach()
+
+    def embed_with_saliency(self, wav: np.ndarray):
+        """Like :meth:`embed`, additionally returning the mel-input
+        gradients and mel spectrograms ([S, F, T] each) for saliency
+        rendering (index/saliency.py)."""
+        S = wav.shape[0]
+        F, T = self.model.F, self.model.T
+        if S == 0:
+            return (np.zeros((0, self.d), np.float32), np.zeros((0, F, T), np.float32),
+                    np.zeros((0, F, T), np.float32))
+        outs = [
+            self._saliency_frames(torch.from_numpy(
+                np.ascontiguousarray(wav[i : i + self.chunk], np.float32)
+            ).to(self.device))
+            for i in range(0, S, self.chunk)
+        ]
+        return tuple(torch.cat([o[j] for o in outs]).float().cpu().numpy()
+                     for j in range(3))
 
     # ------------------------------------------------ packed-song path
     def can_pack(self, hop: int) -> bool:

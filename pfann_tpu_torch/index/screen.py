@@ -45,9 +45,11 @@ Numerics, against the JAX package:
 
 Dropped, being TPU-only: ``impl``/``interpret``, the HALO downgrade, the
 rescue chunk and the lane-multiple batch (the kernel takes any S and B),
-the sharded-build R/n_pad overrides.  ``score_alpha`` runs on the CPU
-plain path only and raises NotImplementedError on CUDA (ROADMAP:
-score_alpha on CUDA); the int8 exact stage rejects it, as in JAX.
+the sharded-build R/n_pad overrides.  ``score_alpha`` ranks stage 1 on raw
+pooled inner products (the int8 kernel), applies the exp transform in
+stage 2's torch math, and rescues through the exhaustive engine's alpha
+path (torch ops, no kernel), on CPU and CUDA alike; the int8 exact stage
+rejects it, as in JAX.
 """
 
 from __future__ import annotations
@@ -56,11 +58,11 @@ import numpy as np
 import torch
 
 from pfann_tpu_torch.index.align import (
-    _ALPHA_ON_CUDA,
     DEFAULT_PAD,
     MAX_BATCH,
     alignment_core,
     build_row_valid,
+    check_device,
     song_rows,
 )
 from pfann_tpu_torch.index.align_kernel import QUERY_TILES
@@ -319,6 +321,7 @@ class ScreenedAlignmentEngine:
         exact_dtype=None,
     ):
         self.device = torch.device(device)
+        check_device(self.device)
         self.score_alpha = float(score_alpha)
         self.exact_int8 = exact_dtype in ("int8", torch.int8)
         if self.exact_int8 and self.score_alpha != 0.0:
@@ -326,8 +329,6 @@ class ScreenedAlignmentEngine:
                 "score_alpha requires a float exact stage "
                 "(screen_exact_dtype != 'int8')"
             )
-        if self.score_alpha != 0.0 and self.device.type != "cpu":
-            raise NotImplementedError(_ALPHA_ON_CUDA)
         if backend not in ("auto", "exact", "approx"):
             raise ValueError("unknown screen backend %r" % (backend,))
         if backend == "approx":

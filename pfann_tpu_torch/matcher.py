@@ -1,7 +1,7 @@
 """Recognize queries against a fingerprint database, on the port.
 
     python -m pfann_tpu_torch.matcher <query list> <database dir> <result file> \
-        [batch] [--top1] [--batch N] [--device cuda|cpu]
+        [batch] [--top1] [--visualize] [--batch N] [--device cuda|cpu]
     python -m pfann_tpu_torch.matcher --pairs [--batch N] <database dir> \
         <list1> <result1> [<list2> <result2> ...]
 
@@ -10,7 +10,9 @@ Same argv contract and outputs as the JAX ``matcher.py``:
   <result stem>_detail.csv: query, answer, score, time
   <result>.bin          per-query [n_songs, 2] float32 (score, time) blocks
                         (not written with --top1, which serves answers only)
-``--visualize`` (gradient saliency) is not ported and raises.
+``--visualize`` (or indexer ``visualize: true``) writes one gradient-
+saliency PNG per query next to the result file (index/saliency.py); the
+packed embed path is off while visualizing, the outputs above unchanged.
 ``--device`` defaults to cuda and raises if no card is visible.
 """
 
@@ -26,23 +28,21 @@ import torch
 from pfann_tpu_torch.data.musicdata import MusicDataset
 from pfann_tpu_torch.index.database import MODEL_FILE_NAME, Database
 from pfann_tpu_torch.index.embedder import Embedder
+from pfann_tpu_torch.index.saliency import save_saliency_png
 from pfann_tpu_torch.utils.config import read_config
 from pfann_tpu_torch.utils.device import pop_device_flag, resolve_device
 from pfann_tpu_torch.utils.logging import MultiProcessInitLogger, get_logger
 
-_VISUALIZE = ("--visualize (gradient saliency) is not ported "
-              "(ROADMAP: saliency / --visualize)")
-
-
 def match_list(
     embedder, db, params, file_list_for_query, result_file,
-    batch=32, top1=False,
+    batch=32, visualize=False, top1=False,
 ) -> None:
     """Match every query in one list file against a loaded DB.  ``top1``
     serves answers through Database.query_top1_batch and writes no .bin
     tables; its TSV and _detail.csv answers equal the default mode's."""
     logger = get_logger()
-    os.makedirs(os.path.dirname(os.path.abspath(result_file)), exist_ok=True)
+    viz_dir = os.path.dirname(os.path.abspath(result_file))
+    os.makedirs(viz_dir, exist_ok=True)
     result_file2 = os.path.splitext(result_file)[0] + "_detail.csv"
     result_file_score = result_file + ".bin"
     dataset = MusicDataset(file_list_for_query, params)
@@ -58,17 +58,19 @@ def match_list(
         detail_writer = csv.writer(fout2)
         detail_writer.writerow(["query", "answer", "score", "time", "part_scores"])
 
-        # (name, ("wav", segments) | ("raw", (signal, n_seg))); queries are
-        # packed into shared embed calls at flush time
+        # (name, ("wav", segments) | ("raw", (signal, n_seg)) | ("emb",
+        # embeddings)); queries are packed into shared embed calls at
+        # flush time
         hop = dataset.hop_size // dataset.frame_shift_mul
-        packed_mode = embedder.can_pack(hop)
+        packed_mode = embedder.can_pack(hop) and not visualize
         pending: list = []
 
         def flush():
             nonlocal pending
             if not pending:
                 return
-            embs: list = [None] * len(pending)
+            embs: list = [payload if kind == "emb" else None
+                          for _, (kind, payload) in pending]
             raw_idx = [i for i, (_, (kind, _)) in enumerate(pending) if kind == "raw"]
             wav_idx = [i for i, (_, (kind, _)) in enumerate(pending) if kind == "wav"]
             if raw_idx:
@@ -132,6 +134,12 @@ def match_list(
                         np.zeros([len(db.songList), 2], dtype=np.float32).tobytes()
                     )
                 continue
+            if visualize:
+                tm = time.time()
+                embeddings, grads, specs = embedder.embed_with_saliency(item[1])
+                save_saliency_png(viz_dir, name, grads, specs)
+                logger.info("compute embedding %.6fs", time.time() - tm)
+                item = ("emb", embeddings)
             pending.append((name, item))
             if len(pending) >= batch:
                 flush()
@@ -158,8 +166,9 @@ def main(argv: list[str] | None = None) -> None:
     MultiProcessInitLogger("nnmatcher")()
     argv = list(sys.argv if argv is None else argv)
     device = resolve_device(pop_device_flag(argv))
-    if "--visualize" in argv:
-        raise NotImplementedError(_VISUALIZE)
+    visualize_flag = "--visualize" in argv
+    if visualize_flag:
+        argv.remove("--visualize")
     pairs_mode = "--pairs" in argv
     if pairs_mode:
         argv.remove("--pairs")
@@ -182,19 +191,19 @@ def main(argv: list[str] | None = None) -> None:
     else:
         if len(argv) < 4:
             print("Usage: python -m pfann_tpu_torch.matcher <query list> "
-                  "<database dir> <result file> [batch] [--top1] [--device cuda|cpu]")
+                  "<database dir> <result file> [batch] [--top1] [--visualize] "
+                  "[--device cuda|cpu]")
             sys.exit()
         dir_for_db = argv[2]
         pairs = [(argv[1], argv[3])]
         batch = int(argv[4]) if len(argv) > 4 else batch
 
     embedder, db, params = load_model_and_db(dir_for_db, device)
-    if params["indexer"].get("visualize", False):
-        raise NotImplementedError(_VISUALIZE)
+    visualize = visualize_flag or params["indexer"].get("visualize", False)
     for file_list_for_query, result_file in pairs:
         match_list(
             embedder, db, params, file_list_for_query, result_file,
-            batch=batch, top1=top1_flag,
+            batch=batch, visualize=visualize, top1=top1_flag,
         )
 
 

@@ -220,15 +220,26 @@ def test_score_alpha_chunks_queries(monkeypatch):
     np.testing.assert_array_equal(to.numpy(), jo)
 
 
-def test_wrapper_rejects_non_cpu_non_cuda():
+def test_wrapper_rejects_non_cpu_non_cuda(monkeypatch):
     """The wrapper takes the plain version only for CPU tensors; anything
-    else either launches the kernel (CUDA) or raises."""
+    else either launches the kernel (CUDA) or raises.  The alpha path runs
+    as torch ops on the CPU and CUDA alike, never through the kernel: it
+    gives JAX's answer, and an unknown device raises."""
     db = torch.empty(10, 4, device="meta")
     q = torch.empty(2, 3, 4, device="meta")
     with pytest.raises(ValueError):
         align_reduce(db, q, 5, 3, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         talign.alignment_core(db, q, R=5, S=3, n_songs=2, score_alpha=1.0)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the alpha path reached align_reduce")
+
+    monkeypatch.setattr(talign, "align_reduce", no_kernel)
+    port, jb, jo = _alpha_case()
+    tb, to = talign.alignment_core(**port)
+    np.testing.assert_allclose(tb.numpy(), jb, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(to.numpy(), jo)
     assert align_reduce.launches == 0
 
 
@@ -297,9 +308,10 @@ def test_database_matches_jax(tmp_path, db_dtype, fsm):
 
 
 def test_database_align_pad_from_meta_and_limits(tmp_path):
-    """align_pad comes from index_meta.json; queries longer than the pad,
-    and the engines that are not ported, raise NotImplementedError; the
-    screened engine is served."""
+    """align_pad comes from index_meta.json; a query longer than the pad and
+    the topk engine give JAX's answers (the topk fallback); only the
+    sharded engine raises NotImplementedError, and an unknown device or
+    engine ValueError; the screened engine is served."""
     rng = np.random.default_rng(2)
     counts = np.asarray([60, 70])
     root = str(tmp_path / "db")
@@ -311,11 +323,21 @@ def test_database_align_pad_from_meta_and_limits(tmp_path):
     (ts, (tid, tt)), = tdb.query_top1_batch(q)
     (js, (jid, jt)), = jdb.query_top1_batch(q)
     assert (tid, tt) == (jid, jt)
-    with pytest.raises(NotImplementedError, match="topk"):
-        tdb.query_top1_batch([np.zeros((49, 8), np.float32)])
-    for bad in ({"engine": "topk"}, {"sharded": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchDatabase(root, dict(bad, top_k=5), hop_size=0.5, device="cpu")
+    long_q = _queries(rng, emb, counts, 2, 1, lens=[49, 55])
+    topk_db = TorchDatabase(root, {"top_k": 5, "engine": "topk"}, hop_size=0.5,
+                            device="cpu")
+    jtopk_db = JaxDatabase(root, {"top_k": 5, "engine": "topk"}, hop_size=0.5)
+    for t, j in ((tdb, jdb), (topk_db, jtopk_db)):
+        for (ls, la), (ljs, lja) in zip(t.query_top1_batch(long_q),
+                                        j.query_top1_batch(long_q)):
+            assert la == lja
+            assert ls == pytest.approx(ljs, abs=0.004)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchDatabase(root, {"sharded": True, "top_k": 5}, hop_size=0.5, device="cpu")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        TorchDatabase(root, {"top_k": 5}, hop_size=0.5, device="meta")
+    with pytest.raises(ValueError, match="engine"):
+        TorchDatabase(root, {"top_k": 5, "engine": "faiss"}, hop_size=0.5, device="cpu")
     for screen in ({"engine": "screen"}, {"screen": True}):
         sdb = TorchDatabase(root, dict(screen, top_k=5), hop_size=0.5, device="cpu")
         assert sdb.engine == "screen" and sdb._align.pad == 48

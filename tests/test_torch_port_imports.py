@@ -53,7 +53,13 @@ def test_port_modules_import_without_pfann_tpu_or_jax():
     names = proc.stdout.split()
     for expected in ("pfann_tpu_torch.builder", "pfann_tpu_torch.matcher",
                      "pfann_tpu_torch.index.screen", "pfann_tpu_torch.data.musicdata",
-                     "pfann_tpu_torch.audio.stream", "pfann_tpu_torch.utils.logging"):
+                     "pfann_tpu_torch.audio.stream", "pfann_tpu_torch.utils.logging",
+                     "pfann_tpu_torch.extractemb", "pfann_tpu_torch.matchemb",
+                     "pfann_tpu_torch.matchfromgt", "pfann_tpu_torch.rebuild",
+                     "pfann_tpu_torch.cppmatcher", "pfann_tpu_torch.genquery",
+                     "pfann_tpu_torch.index.search", "pfann_tpu_torch.index.native",
+                     "pfann_tpu_torch.index.saliency", "pfann_tpu_torch.data.noise",
+                     "pfann_tpu_torch.data.ir", "pfann_tpu_torch.data.querygen"):
         assert expected in names
 
 

@@ -389,14 +389,26 @@ def test_score_alpha_matches_jax_on_cpu():
 
 
 def test_score_alpha_limits():
+    """The int8 exact stage rejects alpha, as in JAX; an unknown device
+    raises; alpha on a float exact stage gives JAX's answers (the CPU and
+    CUDA paths are the same torch ops)."""
     rng = np.random.default_rng(19)
-    emb, counts, _ = make_db(rng, n_songs=8, d=32)
+    emb, counts, pos = make_db(rng, n_songs=8, d=32)
     with pytest.raises(ValueError, match="screen_exact_dtype"):
         tscreen.ScreenedAlignmentEngine(emb, counts, pad=16, exact_dtype="int8",
                                         score_alpha=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         tscreen.ScreenedAlignmentEngine(emb, counts, pad=16, score_alpha=1.0,
                                         device="meta")
+    filters, want, _ = noisy_queries(rng, emb, counts, pos, n=3, S=6, noise=0.1)
+    lens = np.full(3, 6, np.int32)
+    j, t = _engines(emb, counts, pad=16, k=4, top_m=2, score_alpha=1.0,
+                    rescue_threshold=0.4)
+    song, best, toff = t.search_top1(filters, lens)
+    jsong, jbest, jtoff = j.search_top1(filters, lens)
+    assert list(song) == list(jsong) == want
+    np.testing.assert_array_equal(toff, jtoff)
+    np.testing.assert_allclose(best, jbest, rtol=1e-5)
     db3 = torch.zeros(8, 32, 32, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="screen_exact_dtype"):
         tscreen.screen_core(db3, torch.zeros(64, 32, dtype=torch.int8),
