@@ -8,9 +8,11 @@ Phases, in order; any failure raises and the script exits nonzero:
   1. the card: nvidia-smi name and power limit, torch and CUDA versions.
      No CUDA, no run.
   2. build the align-reduce kernel from pfann_tpu_torch/csrc/ with nvcc;
-     print ptxas's registers, shared memory and spills per instantiation,
-     and count the tensor-core instructions (HMMA / IMMA, or HGMMA /
-     IGMMA) in the SASS of each bf16 and int8 instantiation: none fails.
+     print ptxas's registers, shared memory and spills per instantiation
+     (an f32 one that spills fails), and count the tensor-core
+     instructions (HMMA / IMMA, or HGMMA / IGMMA) and FFMA in the SASS of
+     each: a bf16 or int8 instantiation without tensor-core instructions,
+     or an f32 one with them or without FFMA, fails.
   3. kernel against its plain PyTorch version on the card: bf16 and f32;
      pad 32 with S in {19, 24, 32} and pad 128 with S = 119; B in
      {1, 100, 1024}; ~1k songs of 40-120 rows at d = 128.  Then the int8
@@ -36,7 +38,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      margin is clear), the int8 stage-1 launch against its plain version on
      all 1,024 queries (bitwise) and the bf16 stage-3 launch against its
      plain version on the 256, and the same corpus with an int8 exact
-     layout.
+     layout.  Then db_dtype float32 on the same corpus: the screened
+     engine with an f32 exact layout and its default f32 stage 1, (f2) the
+     1,024 clean queries (recall 1024/1024) and the f32 stage-1 launch
+     alone, (f3) the 256 noisy ones, which escalate to the f32 rescue
+     (answers equal the exhaustive f32 engine's where its margin is clear),
+     and the f32 stage-3 launch alone.
   7. the rest of serving, through Database and the CLIs; these paths run
      as torch ops (or on the host) and must launch no align-reduce kernel
      where they do not reach the fast engines:
@@ -48,6 +55,11 @@ Phases, in order; any failure raises and the script exits nonzero:
          queries;
      (c) score_alpha 1.0 on the exhaustive engine, 256 queries, recall
          256/256, held to the CPU alpha path on 1,000 songs;
+     (f1) db_dtype float32 on the exhaustive engine: 1,024 and 32 noisy
+         queries of 19 rows through query_top1_batch, one f32 launch each,
+         recall 1024/1024 and 32/32; at both, the f32 launch the path
+         makes (the Database's filters: 19 rows padded to 24 windows)
+         held to its plain version and timed;
      (d) score_alpha 1.0 on the screened engine on phase 6's corpus, 256
          clean queries, recall 256/256, answers equal the exhaustive
          alpha engine's where its margin is clear;
@@ -56,21 +68,23 @@ Phases, in order; any failure raises and the script exits nonzero:
          and matcher after rebuild (the default TSV), matchfromgt (the
          crops' songs and offsets), cppmatcher (recall 16/16).
 
-Phases 3, 4 and 6 print each kernel's time beside its bound (the larger of
-the operations over the card's published dense peak for their type and
-the bytes over its memory rate, from the shapes), its plain version's time
-and a library yardstick that only this script calls: F.conv1d of the
-layout as [1, d, N + S - 1] with the queries as [B, d, S] filters and the
-per-song amax for bf16 and f32, and torch._int_mm of the Gram product
+Phases 3, 4, 6 and 7 (f1) print each kernel's time beside its bound (the
+larger of the operations over the card's published dense peak for their
+type and the bytes over its memory rate, from the shapes), its plain
+version's time and a library yardstick that only this script calls:
+F.conv1d of the layout as [1, d, N + S - 1] with the queries as [B, d, S]
+filters (chunked over queries past 8 GiB of output) and the per-song amax
+for bf16 and f32 (TF32 off), and torch._int_mm of the Gram product
 [N, d] x [d, Sc*B], chunked, for int8 (the products only: a lower bound on
 a library route).
 
 Every kernel shape that is timed is held to the plain version on the
-same inputs.  Each path (phase 5's two engines, phase 6's batches, phase
-7's paths) is driven with the kernel's launch counts set to 0 just before
-it and read just after; the kernels line gives each form's launches per
-path.  The line before the last is a JSON object describing each kernel;
-the last line is {"ok": true, "device": {...}}.
+same inputs; each f32 path prints the f32 form's largest |dbest| on a
+line of its own.  Each path (phase 5's two engines, phase 6's batches,
+phase 7's paths) is driven with the kernel's launch counts set to 0 just
+before it and read just after; the kernels line gives each form's (bf16,
+int8, f32) launches per path.  The line before the last is a JSON object
+describing each kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -162,15 +176,22 @@ def bound(dtype, N, d, S, B, n_songs, R):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def conv_library_ms(db, q, R, S, n_songs, reps):
+def conv_library_ms(db, q, R, S, n_songs, reps, out_bytes=8 << 30):
     """The library yardstick for bf16 and f32: F.conv1d of the layout as
     [1, d, N + S - 1] (zero rows past N) with the queries as [B, d, S]
-    filters, then the per-song amax (no argmax)."""
+    filters, then the per-song amax (no argmax), in chunks of queries whose
+    [chunk, N] output stays under out_bytes."""
     n0 = n_songs * R
     x = zero_extended(db, max(db.shape[0], n0) + S - 1, db.dtype).T.contiguous()[None]
     w = q.permute(0, 2, 1).contiguous()
-    ms = time_ms(lambda: F.conv1d(x, w)[0, :, :n0].reshape(q.shape[0], n_songs, R).amax(-1),
-                 reps)
+    chunk = max(1, out_bytes // (x.shape[2] * x.element_size()))
+
+    def run():
+        for b0 in range(0, w.shape[0], chunk):
+            wc = w[b0 : b0 + chunk]
+            F.conv1d(x, wc)[0, :, :n0].reshape(wc.shape[0], n_songs, R).amax(-1)
+
+    ms = time_ms(run, reps)
     del x, w
     torch.cuda.empty_cache()
     return ms
@@ -202,8 +223,11 @@ def fmt_bound(b):
     return "bound %.3f ms (%s)" % b
 
 
+# align_reduce_mma<mma::Core<Op, RS, WARPS_M, WARPS_N, MT, NT>> and
+# align_reduce_f32<f32k::Core<WARPS_M, WARPS_N, RM, RN>>, as mangled
 _KERNEL_NAME = re.compile(
     r"align_reduce_mma.*?(Bf16Op|Int8Op)ELb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+_F32_KERNEL_NAME = re.compile(r"align_reduce_f32.*?CoreILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
 
 
 def kernel_label(mangled):
@@ -214,7 +238,11 @@ def kernel_label(mangled):
         return "%s TM=%d TN=%d%s" % ({"Bf16Op": "bf16", "Int8Op": "int8"}[op],
                                      int(wm) * int(mt) * 16, int(wn) * int(nt) * 8,
                                      " rowsum" if rs == "1" else "")
-    return "f32" if "align_reduce_f32" in mangled else mangled
+    m = _F32_KERNEL_NAME.search(mangled)
+    if m:  # warps (M x N) of 8 x 4 lanes, each RM rows x RN queries
+        wm, wn, rm, rn = (int(x) for x in m.groups())
+        return "f32 TM=%d TN=%d" % (wm * 8 * rm, wn * 4 * rn)
+    return mangled
 
 
 def ptxas_report(log):
@@ -229,9 +257,10 @@ def ptxas_report(log):
     return out
 
 
-def sass_tensor_core_counts(lib_path):
-    """{instantiation: Counter of HMMA/IMMA/HGMMA/IGMMA in its SASS}, or
-    None where the toolkit has no cuobjdump."""
+def sass_counts(lib_path):
+    """{instantiation: Counter of the tensor-core instructions (HMMA/IMMA/
+    HGMMA/IGMMA) and FFMA in its SASS}, or None where the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -244,7 +273,7 @@ def sass_tensor_core_counts(lib_path):
             name = kernel_label(m.group(1))
             counts[name] = collections.Counter()
         elif name:
-            counts[name].update(re.findall(r"\b(HMMA|IMMA|HGMMA|IGMMA)\.", line))
+            counts[name].update(re.findall(r"\b(HMMA|IMMA|HGMMA|IGMMA|FFMA)\b", line))
     return counts
 
 
@@ -280,10 +309,15 @@ def exact_scores(db, q, R, S, picks, chunk=4096, alpha=0.0, row_valid=None):
 
 def compare(db, q, R, S, n_songs):
     """Kernel vs plain version on the same card tensors.  Returns
-    (max |best diff|, #argoff differences, kernel outputs)."""
+    (max |best diff|, #argoff differences, kernel outputs, the plain
+    version's ms in this one call, by CUDA events)."""
     kb, ko = align_reduce(db, q, R, S, n_songs)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     pb, po = align_reduce_reference(db, q, R, S, n_songs)
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     kb, ko, pb, po = (t.cpu().numpy() for t in (kb, ko, pb, po))
     if not np.isfinite(kb).all():
         raise AssertionError("kernel best has non-finite values")
@@ -299,7 +333,7 @@ def compare(db, q, R, S, n_songs):
         p = exact_scores(db, q, R, S, np.stack([b, s, po[b, s]], 1))
         if np.abs(a - p).max() > BEST_ATOL:
             raise AssertionError("argoff differs where the margin exceeds %g" % BEST_ATOL)
-    return err, len(bad), (kb, ko)
+    return err, len(bad), (kb, ko), plain_ms
 
 
 def compare_exact(db, q, R, S, n_songs):
@@ -326,7 +360,7 @@ PATHS = {}
 
 
 def record(path):
-    PATHS[path] = {"bf16+f32": launched(torch.bfloat16) + launched(torch.float32),
+    PATHS[path] = {"bf16": launched(torch.bfloat16), "f32": launched(torch.float32),
                    "int8": launched(torch.int8)}
     return PATHS[path]
 
@@ -448,7 +482,7 @@ def screen_scenario(dev, card) -> dict:
     # stage 3 alone: the bf16 kernel over the whole exact layout, 256 queries
     db3 = eng._db3.view(-1, d)
     q3 = torch.from_numpy(fn).to(dev, torch.bfloat16)
-    err3, nbad3, _ = compare(db3, q3, eng.R, S, eng.n_pad)
+    err3, nbad3, _, _ = compare(db3, q3, eng.R, S, eng.n_pad)
     s3_ms = time_ms(lambda: align_reduce(db3, q3, eng.R, S, eng.n_pad), 3)
     s3_plain_ms = time_ms(lambda: align_reduce_reference(db3, q3, eng.R, S, eng.n_pad), 1)
     s3_lib_ms = conv_library_ms(db3, q3, eng.R, S, eng.n_pad, 1)
@@ -496,9 +530,98 @@ def screen_scenario(dev, card) -> dict:
               B / (ms8 / 1e3), card), flush=True)
     del eng8
     torch.cuda.empty_cache()
+    f32 = screen_f32(dev, card, emb, counts, f, src, off, fn)
     return {"max_abs_err": err8, "bf16_err": err3,
             "ms": s1_ms, "plain_ms": s1_plain_ms, "library_ms": s1_lib_ms,
-            "bound": s1_bound, "corpus": (emb, counts)}
+            "bound": s1_bound, "corpus": (emb, counts), "f32": f32}
+
+
+def f32_launch(name, db, q, R, S, n_songs, card, conv_reps=1):
+    """The f32 kernel at one main-path shape: held to the plain version on
+    the same tensors (which also times it once), then timed (3 calls),
+    beside F.conv1d + amax with TF32 off and the bound.  Prints the f32
+    form's largest |dbest| on a line of its own; returns the numbers."""
+    err, nbad, _, plain_ms = compare(db, q, R, S, n_songs)
+    ms = time_ms(lambda: align_reduce(db, q, R, S, n_songs), 3)
+    lib_ms = conv_library_ms(db, q, R, S, n_songs, conv_reps)
+    bnd = bound(torch.float32, db.shape[0], db.shape[1], S, q.shape[0], n_songs, R)
+    print("  f32 kernel, %s (R=%d, S=%d, B=%d, %d songs): %.3f ms, plain %.3f ms, conv1d "
+          "%.3f ms, %s; argoff ties %d  %s" % (name, R, S, q.shape[0], n_songs, ms,
+                                               plain_ms, lib_ms, fmt_bound(bnd), nbad, card),
+          flush=True)
+    print("  f32 max|dbest| %s: %.3e" % (name, err), flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound": bnd}
+
+
+def screen_f32(dev, card, emb, counts, f, src, off, fn):
+    """Phase 6, db_dtype float32: the screened engine with an f32 exact
+    layout and (by default) an f32 stage 1.  (f2) the 1,024 clean queries,
+    recall 1024/1024, and stage 1 alone; (f3) the 256 noisy ones, which
+    escalate to the f32 rescue over the whole exact layout, equal to the
+    exhaustive f32 engine where its margin is clear, and stage 3 alone."""
+    B, S, d = f.shape
+    k = 4
+    tm = time.time()
+    eng = ScreenedAlignmentEngine(emb, counts, pad=32, k=k, top_m=32,
+                                  score_dtype=torch.float32, device=dev,
+                                  rescue_threshold=0.4)
+    torch.cuda.synchronize()
+    if eng.coarse_dtype != torch.float32:
+        raise AssertionError("f32 engine: stage 1 in %s" % eng.coarse_dtype)
+    print("  f32 screened engine: build %.1f s, resident %.1f MB (f32 exact layout %.1f MB + "
+          "f32 coarse copy %.1f MB)  %s" % (
+              time.time() - tm, eng.resident_bytes() / 1e6, eng._db3.numel() * 4 / 1e6,
+              eng._coarse.numel() * 4 / 1e6, card), flush=True)
+    out = {}
+    reset_launch_counts()
+    song, _, t = eng.search_top1(f)
+    torch.cuda.synchronize()
+    n = record("6: f32 screened engine, clean batch")
+    hits, right = int((song == src).sum()), int((t == off).sum())
+    if hits != B or right != B or n["f32"] < 1 or n["bf16"] or n["int8"]:
+        raise AssertionError("f32 screened clean batch: recall %d/%d, offsets %d/%d, "
+                             "launches %s" % (hits, B, right, B, n))
+    batch_ms = time_ms(lambda: eng.search_top1(f), 3)
+    print("  (f2) clean batch: recall %d/%d, offsets right %d/%d, f32 launches %d; "
+          "search_top1 %.4f s/batch = %.1f queries/s  %s" % (
+              hits, B, right, B, n["f32"], batch_ms / 1e3, B / (batch_ms / 1e3), card),
+          flush=True)
+    qc = collapse_queries(torch.from_numpy(f).to(dev), k)
+    out["f2"] = f32_launch("f2 stage 1", eng._coarse, qc, eng.Rc, qc.shape[1], eng.n_pad,
+                           card)
+    del qc
+
+    reset_launch_counts()
+    esc0 = eng.escalated
+    song_n, _, t_n = eng.search_top1(fn)
+    torch.cuda.synchronize()
+    n = record("6: f32 screened engine, noisy batch")
+    esc = eng.escalated - esc0
+    if esc < 1 or n["f32"] < 2 or n["bf16"] or n["int8"]:
+        raise AssertionError("f32 noisy batch: escalated %d, launches %s" % (esc, n))
+    noisy_ms = time_ms(lambda: eng.search_top1(fn), 1)
+    db3 = eng._db3.view(-1, d)
+    q3 = torch.from_numpy(fn).to(dev)
+    out["f3"] = f32_launch("f3 stage 3", db3, q3, eng.R, S, eng.n_pad, card)
+    del eng, db3, q3
+    torch.cuda.empty_cache()
+    full = AlignmentEngine(emb, counts, score_dtype=torch.float32, device=dev)
+    (fb, fo), = full.search_device(fn)
+    top2 = fb.topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > BEST_ATOL).cpu().numpy()
+    fsong, _, ft = (x.cpu().numpy() for x in _top1(fb, fo, full.pad))
+    same = (song_n == fsong) & (t_n == ft)
+    if not same[clear].all() or not clear.any():
+        raise AssertionError("(f3): %d answers differ from the exhaustive f32 engine's "
+                             "where its margin is clear (%d clear)"
+                             % (int((~same[clear]).sum()), int(clear.sum())))
+    print("  (f3) noisy batch (256 queries): escalated %d, f32 launches %d, answers == "
+          "exhaustive f32 engine on %d/%d with a clear margin (%d/256 equal in all); "
+          "screened %.3f ms  %s" % (esc, n["f32"], int(same[clear].sum()), int(clear.sum()),
+                                    int(same.sum()), noisy_ms, card), flush=True)
+    del full, fb, fo
+    torch.cuda.empty_cache()
+    return out
 
 
 def png_pixels(path):
@@ -550,10 +673,11 @@ def hold_to_native(db, queries, emb, song_pos, n=4):
 
 
 def rest_of_serving(dev, card, tmp, emb4, big, p5):
-    """Phase 7: the long-query fallback, the topk engine and score_alpha
-    through Database on phase 4's corpus as a DB directory, score_alpha on
-    the screened engine on phase 6's corpus, and the side CLIs and
-    saliency on phase 5's DB (p5: its qlist, db_dir, default TSV, truth)."""
+    """Phase 7: the long-query fallback, the topk engine, score_alpha and
+    db_dtype float32 (f1) through Database on phase 4's corpus as a DB
+    directory, score_alpha on the screened engine on phase 6's corpus, and
+    the side CLIs and saliency on phase 5's DB (p5: its qlist, db_dir,
+    default TSV, truth).  Returns the f32 kernel's numbers at (f1)."""
     phase(7, "the rest of serving: topk engine, long-query fallback, score_alpha, "
              "saliency, side CLIs")
     per, hop = 120, 0.5
@@ -580,16 +704,17 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
         q /= np.linalg.norm(q, axis=2, keepdims=True)
         return q, src, off
 
-    def serve(params, queries, src, off, path):
-        """Database(params).query_top1_batch: once with the launch counts
-        at 0 (recall, offsets), then once timed.  Returns (db, ms)."""
-        db = Database(db_dir, params, hop, dev)
+    def serve(params, queries, src, off, path, launches=None, db=None):
+        """Database(params).query_top1_batch (on ``db`` where given): once
+        with the launch counts at 0 (recall, offsets; the launches must be
+        ``launches``, default none), then once timed.  Returns (db, ms)."""
+        db = db or Database(db_dir, params, hop, dev)
         qs = list(queries)
         reset_launch_counts()
         ans = db.query_top1_batch(qs)
         torch.cuda.synchronize()
         n = record(path)
-        if n["bf16+f32"] or n["int8"]:
+        if n != (launches or dict.fromkeys(n, 0)):
             raise AssertionError("%s launched align_reduce: %s" % (path, n))
         song = np.array([a[1][0] for a in ans])
         t = np.array([a[1][1] for a in ans])
@@ -663,6 +788,30 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
     del eng, gb, go
     torch.cuda.empty_cache()
 
+    # (f1) db_dtype float32 on the exhaustive engine: the f32 kernel at
+    # full width, one launch per batch, held to its plain version and timed
+    # on the filters the Database launches (19 rows padded to 24 windows)
+    qf, src, off = crops(emb4, 75, 1024, 19)
+    f32 = {}
+    db = None
+    for B in (1024, 32):
+        path = "7f1: db_dtype float32, exhaustive engine, B=%d" % B
+        db, ms_f = serve({"top_k": 100, "db_dtype": "float32"}, qf[:B], src[:B], off[:B],
+                         path, launches={"bf16": 0, "f32": 1, "int8": 0}, db=db)
+        e = db._align
+        if db.engine != "align" or e._db.dtype != torch.float32:
+            raise AssertionError("(f1) served by %s in %s" % (db.engine, e._db.dtype))
+        print("  (f1) db_dtype float32, exhaustive engine (%.1f MB resident), %d noisy "
+              "queries: recall %d/%d, offsets %d/%d, f32 launches 1; %.3f ms per batch  %s"
+              % (e._db.numel() * 4 / 1e6, B, B, B, B, B, ms_f, card), flush=True)
+        filters, _ = db._filters(list(qf[:B]))
+        q = torch.from_numpy(filters).to(dev)
+        f32[B] = f32_launch("f1 B=%d" % B, e._db, q, e.R, q.shape[1], e.n_songs, card,
+                            conv_reps=3)
+        del q
+    del db, e
+    torch.cuda.empty_cache()
+
     # (d) score_alpha 1.0 on the screened engine, phase 6's corpus
     emb, counts100 = big
     qd, src, off = crops(emb, 74, 256, 19)
@@ -676,7 +825,7 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
     torch.cuda.synchronize()
     n = record("7d: score_alpha 1.0, screened engine")
     hits, right = int((song == src).sum()), int((t == off).sum())
-    if hits != 256 or right != 256 or n["int8"] < 1 or n["bf16+f32"]:
+    if hits != 256 or right != 256 or n["int8"] < 1 or n["bf16"] or n["f32"]:
         raise AssertionError("7d: recall %d/256, offsets %d/256, launches %s"
                              % (hits, right, n))
     ms_d = time_ms(lambda: eng.search_top1(qd), 3)
@@ -770,7 +919,7 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
         tsv=res)
     print("  extractemb -> matchemb TSVs == matcher's (align engine: %d bf16 launches; "
           "screen: true: %d int8); rebuild, then matcher: the same TSV" % (
-              n_align["bf16+f32"], n_screen["int8"]), flush=True)
+              n_align["bf16"], n_screen["int8"]), flush=True)
 
     gt = os.path.join(out, "gt.tsv")
     with open(gt, "w") as fh:
@@ -794,6 +943,7 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
     print("  matchfromgt: %d rows, answers and times == the crops' (hop-aligned); "
           "cppmatcher (native matcher binary): recall %d/%d (%.2f s)  %s" % (
               len(rows), hits, len(p5["truth"]), cpp_s, card), flush=True)
+    return f32
 
 
 def main() -> None:
@@ -828,22 +978,34 @@ def main() -> None:
         for fut in native_builds:
             print("built %s (g++) by %.2f s  %s" % (os.path.relpath(fut.result(), REPO),
                                                      time.time() - tm, card))
-    for name, line in ptxas_report(align_kernel.build_info.get("log", "")):
+    report = ptxas_report(align_kernel.build_info.get("log", ""))
+    for name, line in report:
         print("  ptxas %-18s %s" % (name, line))
-    sass = sass_tensor_core_counts(lib)
+    # the f32 instantiations keep their tiles in registers: no spills
+    spills = [(n, ln) for n, ln in report if n.startswith("f32") and re.search(
+        r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    if spills:
+        raise AssertionError("f32 instantiations spill: %s" % spills)
+    sass = sass_counts(lib)
     if sass is None:
-        print("  no cuobjdump in this toolkit: tensor-core SASS not counted")
+        print("  no cuobjdump in this toolkit: SASS not counted")
     else:
         for name, c in sorted(sass.items()):
-            print("  SASS %-18s %s" % (name, dict(c) or "no tensor-core instructions"))
+            print("  SASS %-18s %s" % (name, dict(c)))
         for tag, ops in (("bf16", ("HMMA", "HGMMA")), ("int8", ("IMMA", "IGMMA"))):
             inst = {n: c for n, c in sass.items() if n.startswith(tag)}
             if not inst or any(sum(c[op] for op in ops) == 0 for c in inst.values()):
                 raise AssertionError("%s instantiations without %s: %s" % (tag, ops, inst))
+        # f32 is FFMA on the CUDA cores, never the tensor cores (TF32)
+        inst = {n: c for n, c in sass.items() if n.startswith("f32")}
+        if not inst or any(c["FFMA"] == 0 or sum(c[op] for op in ("HMMA", "HGMMA"))
+                           for c in inst.values()):
+            raise AssertionError("f32 instantiations: %s" % inst)
 
     # ---------------------------------------------------------------- 3
     phase(3, "kernel vs plain on the card")
-    max_err = 0.0
+    max_err = 0.0  # bf16
+    f32_err = 0.0
     rng = np.random.default_rng(0)
     d = 128
     counts = rng.integers(40, 121, size=1000)
@@ -857,8 +1019,11 @@ def main() -> None:
                 q_all, _ = self_queries(rng, db_np, R, len(counts), S, 1024, d)
                 for B in (1, 100, 1024):
                     q = torch.from_numpy(q_all[:B]).to(dev, dtype)
-                    err, nbad, _ = compare(db, q, R, S, len(counts))
-                    max_err = max(max_err, err)
+                    err, nbad, _, _ = compare(db, q, R, S, len(counts))
+                    if dtype == torch.float32:
+                        f32_err = max(f32_err, err)
+                    else:
+                        max_err = max(max_err, err)
                     k_ms = time_ms(lambda: align_reduce(db, q, R, S, len(counts)), 3)
                     p_ms = time_ms(
                         lambda: align_reduce_reference(db, q, R, S, len(counts)), 1)
@@ -870,6 +1035,7 @@ def main() -> None:
                               fmt_bound(bnd), err, nbad, card), flush=True)
             del db
     torch.cuda.empty_cache()
+    print("  f32 max|dbest| phase 3: %.3e" % f32_err, flush=True)
     # the int8 variant on the same corpus, pooled and quantized as stage 1
     # of the screened engine sees it: Sc = ceil(S / 4) in {5, 6, 8, 30}
     int8_err = 0.0
@@ -923,7 +1089,7 @@ def main() -> None:
     if hits != B:
         raise AssertionError("recall sanity failed: %d/%d" % (hits, B))
     q = torch.from_numpy(f).to(dev, torch.bfloat16)
-    err, nbad, _ = compare(engine._db, q, engine.R, S, n_songs)
+    err, nbad, _, _ = compare(engine._db, q, engine.R, S, n_songs)
     max_err = max(max_err, err)
     kernel_ms = time_ms(lambda: align_reduce(engine._db, q, engine.R, S, n_songs), 5)
     # the plain version at its 1 GiB default score-tensor cap (9 queries a
@@ -935,7 +1101,7 @@ def main() -> None:
             lambda: align_reduce_reference(engine._db, q, engine.R, S, n_songs), 1)
         torch.cuda.empty_cache()
     qb = q[:32].contiguous()  # the matcher's default batch (--batch 32, fsm 1)
-    err32, nbad32, _ = compare(engine._db, qb, engine.R, S, n_songs)
+    err32, nbad32, _, _ = compare(engine._db, qb, engine.R, S, n_songs)
     max_err = max(max_err, err32)
     k32 = time_ms(lambda: align_reduce(engine._db, qb, engine.R, S, n_songs), 5)
     p32 = time_ms(lambda: align_reduce_reference(engine._db, qb, engine.R, S, n_songs), 3)
@@ -1008,7 +1174,7 @@ def main() -> None:
         matcher.main(["matcher", qlist, db_dir, res1, "--top1", "--device", "cuda"])
         torch.cuda.synchronize()
         match_s = time.time() - tm
-        launches = record("5: builder + matcher x2, align engine")["bf16+f32"]
+        launches = record("5: builder + matcher x2, align engine")["bf16"]
         print("  builder %.2f s, matcher x2 %.2f s, kernel launches %d  %s" % (
             build_s, match_s, launches, card))
         if launches <= 0:
@@ -1047,7 +1213,7 @@ def main() -> None:
         filters, lens = db._filters(zs)
         eng = db._align
         qf = torch.from_numpy(filters).to(dev, eng.score_dtype)
-        err, nbad, (kb, _) = compare(eng._db, qf, eng.R, qf.shape[1], eng.n_songs)
+        err, nbad, (kb, _), _ = compare(eng._db, qf, eng.R, qf.shape[1], eng.n_songs)
         max_err = max(max_err, err)
         pb, po = align_reduce_reference(eng._db, qf, eng.R, qf.shape[1], eng.n_songs)
         song, ssum, t = (x.cpu().numpy() for x in _top1(pb, po, eng.pad))
@@ -1101,12 +1267,19 @@ def main() -> None:
 
         shot = screen_scenario(dev, card)
         max_err = max(max_err, shot["bf16_err"])
-        rest_of_serving(dev, card, tmp, emb, shot.pop("corpus"),
-                        dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth))
+        f1 = rest_of_serving(dev, card, tmp, emb, shot.pop("corpus"),
+                             dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth))
 
     # every driven path's launches, phases 5-7 (0 where a path runs none)
-    launches = sum(p["bf16+f32"] for p in PATHS.values())
+    launches = sum(p["bf16"] for p in PATHS.values())
     launches_int8 = sum(p["int8"] for p in PATHS.values())
+    launches_f32 = sum(p["f32"] for p in PATHS.values())
+    f32_shapes = [f1[1024], f1[32], shot["f32"]["f2"], shot["f32"]["f3"]]
+    f32_err = max([f32_err] + [x["err"] for x in f32_shapes])
+    for path in ("7f1: db_dtype float32, exhaustive engine, B=1024",
+                 "6: f32 screened engine, clean batch", "6: f32 screened engine, noisy batch"):
+        if PATHS[path]["f32"] < 1:
+            raise AssertionError("%s launched no f32 kernel" % path)
     ends = [*list(PHASE_START.values())[1:], time.perf_counter()]
     print("wall s per phase: %s  %s" % (", ".join(
         "%d: %.1f" % (n, e - t0) for (n, t0), e in zip(PHASE_START.items(), ends)), card),
@@ -1117,7 +1290,7 @@ def main() -> None:
         "source": "pfann_tpu_torch/csrc/align_reduce.cu",
         "replaces": "pfann_tpu/index/pallas_align.py:45",
         "launches": launches,
-        "launches_by_path": {k: v["bf16+f32"] for k, v in PATHS.items()},
+        "launches_by_path": {k: v["bf16"] for k, v in PATHS.items()},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1137,6 +1310,19 @@ def main() -> None:
         "bound_ms": shot["bound"][0],
         "bound_by": shot["bound"][1],
         "library_ms": shot["library_ms"],
+    }, {
+        "name": "align_reduce_f32",
+        "route": "cuda",
+        "source": "pfann_tpu_torch/csrc/align_reduce.cu",
+        "replaces": "pfann_tpu/index/pallas_align.py:45",
+        "launches": launches_f32,
+        "launches_by_path": {k: v["f32"] for k, v in PATHS.items()},
+        "max_abs_err": f32_err,
+        "ms": f1[1024]["ms"],
+        "plain_ms": f1[1024]["plain_ms"],
+        "bound_ms": f1[1024]["bound"][0],
+        "bound_by": f1[1024]["bound"][1],
+        "library_ms": f1[1024]["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,11 @@ hand-written kernel of ``csrc/align_reduce.cu`` (or raises); on a CPU
 tensor it runs ``align_reduce_reference``, the plain PyTorch version
 beside it.  There is no fallback from the kernel to the plain version.
 
-bf16 and int8 run on the tensor cores; ``tile_plan`` works out their
-tiles (query tile, row sums, songs per block, window rows per stage, A
-stages, shared memory) here, where a CPU test can check it, and the kernel
-checks the plan it is given.  f32 runs on the CUDA cores and needs no plan.
+bf16 and int8 run on the tensor cores, f32 on the CUDA cores (FFMA in
+round-to-nearest f32, no TF32); all three are the same GEMM over layout
+rows.  ``tile_plan`` works out each launch's tiles (query tile, row sums,
+songs per block, window rows per stage, A stages, shared memory) here,
+where a CPU test can check it, and the kernel checks the plan it is given.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, under ``pfann_tpu_torch/_build/``,
@@ -43,7 +44,8 @@ REFERENCE_SCORE_BYTES = 1 << 30
 # kernel's int32 accumulator
 INT8_MAX_SD = (2**31 - 1) // (128 * 128)
 
-# The tensor-core kernel's tiles (csrc/align_reduce.cu, mma::launch_tile).
+# The kernel's tiles (csrc/align_reduce.cu, launch_mma for bf16 and int8,
+# launch_f32 for f32).
 SMEM_LIMIT = 232_448  # shared memory a block may use on sm_90 (227 KB)
 SM_SMEM = 233_472  # shared memory of one SM (228 KB), 1 KB of it kept per block
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -52,10 +54,15 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 # tiles do: bf16 ran ~1.1x and int8 1.01-1.05x faster in them
 # (tools/torch_kernel_sweep.py; PERF.md)
 QUERY_TILES = (8, 16, 32, 64)
-# TN -> (TM layout rows per M-subtile, threads per block)
+# bf16 and int8, TN -> (TM layout rows per M-subtile, threads per block)
 TILE_CONFIGS = {8: (64, 128), 16: (128, 256), 32: (256, 256), 64: (256, 256)}
+# f32, (TM, threads) at every TN: lanes of 8 rows x 8 queries (fewer
+# queries below 64), so a K-step of 4 floats is 16 shared loads for 256
+# FMAs.  128 queries a block (in 128-row subtiles) ran 3% slower than 64
+# at the f32 serving shapes (tools/torch_kernel_sweep.py)
+F32_TILE = (256, 256)
 MAX_GROUP = 64  # songs per block
-QUERY_STAGES = 2  # the kernel's ring of query-row stages (mma::NST)
+QUERY_STAGES = 2  # the kernel's ring of query-row stages (NST)
 # bf16 chains all S*d/16 MMAs of a sum into one accumulator up to this
 # S*d; past it each window row is summed apart (see tile_plan's rowsum)
 CHAIN_MAX_SD = 4096
@@ -119,29 +126,48 @@ def _load():
     return _lib
 
 
-def _song_group(R: int, tm: int, tn: int, n_songs: int, n_qtiles: int) -> int:
+def _song_group(R: int, tm: int, tn: int, n_songs: int, n_qtiles: int,
+                resident: int = 0) -> int:
     """Songs per block: the fewest rows wasted rounding G*R up to a whole
     number of TM-row subtiles (ties to the larger G), with G*R at most 8
     subtiles, the per-song maxima under SEGMAX_BYTES, and at least two
-    blocks per SM where the DB has that many songs."""
+    blocks per SM where the DB has that many songs.  With ``resident``
+    (the blocks the card runs at once), the waste also counts the last,
+    partly filled wave of blocks: f32 runs one block per SM, and at phase
+    3's 1,000 songs 5 songs a block (25 waves of 3,200 blocks) ran 2-4%
+    faster than 10 (13 waves of 1,600; tools/torch_kernel_sweep.py)."""
     hi = min(MAX_GROUP, SEGMAX_BYTES // (8 * tn), max(1, 8 * tm // R), n_songs,
              max(1, n_songs * n_qtiles // (2 * SMS)))
+
+    def rows(g):
+        return -(-g * R // tm) * tm / (g * R)
+
+    def cost(g):  # rows, and the wave: costs within 1% count as equal
+        blocks = -(-n_songs // g) * n_qtiles
+        return round(rows(g) * -(-blocks // resident) * resident / blocks, 2)
+
     return min(range(1, max(1, hi) + 1),
-               key=lambda g: (-(-g * R // tm) * tm / (g * R), -g))
+               key=lambda g: (cost(g) if resident else 0, rows(g), -g))
+
+
+def row_stride(d: int, itemsize: int) -> int:
+    """Bytes between staged rows: the row rounded up to the K-step (32
+    bytes for the MMAs, 16 for f32's float4 loads), plus 16."""
+    step = 16 if itemsize == 4 else 32
+    return -(-d * itemsize // step) * step + 16
 
 
 def smem_bytes(d: int, itemsize: int, tm: int, tn: int, G: int, sc: int,
                abuf: int) -> int:
-    """Dynamic shared memory of a plan (mma::smem_bytes): abuf A stages of
-    tm + sc - 1 rows, QUERY_STAGES query-row stages of tn rows, and two
-    32-bit words per (song of the group, query); rows 32k + 16 bytes
-    apart."""
-    lds = -(-d * itemsize // 32) * 32 + 16
+    """Dynamic shared memory of a plan (smem_bytes in the source): abuf A
+    stages of tm + sc - 1 rows, QUERY_STAGES query-row stages of tn rows,
+    and two 32-bit words per (song of the group, query)."""
+    lds = row_stride(d, itemsize)
     return abuf * (tm + sc - 1) * lds + QUERY_STAGES * tn * lds + G * tn * 8
 
 
 def tile_plan(B: int, S: int, d: int, itemsize: int, R: int, n_songs: int) -> dict:
-    """The tensor-core kernel's plan for bf16 (itemsize 2) or int8 (1):
+    """The kernel's plan for f32 (itemsize 4), bf16 (2) or int8 (1):
 
     tn     queries per block: the smallest of QUERY_TILES that holds B
            (blocks of the largest past it);
@@ -150,32 +176,37 @@ def tile_plan(B: int, S: int, d: int, itemsize: int, R: int, n_songs: int) -> di
            f32 accumulation rounds toward zero, so one chain over
            S = 119 rows of d = 128 drifts 2.3e-3);
     tm     layout rows per M-subtile, and ``threads`` per block, of tn's
-           kernel instantiation;
-    G      songs per block (``_song_group``);
+           kernel instantiation (TILE_CONFIGS; F32_TILE for f32);
+    G      songs per block (``_song_group``; for f32 counting the last
+           partial wave of its one block per SM);
     sc     window rows per A stage: S, unless S*d outgrows shared memory;
     abuf   A stages: 2 (the next subtile's rows load during this one's
            steps), or 1 where shared memory is short;
     smem   bytes of dynamic shared memory, at most SMEM_LIMIT;
-    grid   (song groups, query tiles).
+    grid   (song groups, query tiles), which the kernel runs as a 1-D
+           grid with the song group fastest.
 
     Query rows stream through a ring of QUERY_STAGES.  Two A stages are
-    taken unless one A stage leaves room for two blocks per SM where two
-    do not (on the H100 two blocks hide each other's barriers and loads);
-    then fewer window rows per stage, at one A stage; then a smaller
+    taken unless, for bf16 and int8, one A stage leaves room for two
+    blocks per SM where two do not (on the H100 two blocks hide each
+    other's barriers and loads; f32's registers hold it to one block per
+    SM); then fewer window rows per stage, at one A stage; then a smaller
     query tile."""
-    lds = -(-d * itemsize // 32) * 32 + 16
+    f32 = itemsize == 4
+    lds = row_stride(d, itemsize)
     rowsum = itemsize == 2 and S * d > CHAIN_MAX_SD
     want = next(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
     for tn in sorted((t for t in QUERY_TILES if t <= want), reverse=True):
-        tm, threads = TILE_CONFIGS[tn]
+        tm, threads = F32_TILE if f32 else TILE_CONFIGS[tn]
         n_qtiles = -(-B // tn)
-        G = _song_group(R, tm, tn, n_songs, n_qtiles)
+        G = _song_group(R, tm, tn, n_songs, n_qtiles, SMS if f32 else 0)
 
         def smem(sc, abuf):
             return smem_bytes(d, itemsize, tm, tn, G, sc, abuf)
 
         fit = [(S, a) for a in (2, 1) if smem(S, a) <= SMEM_LIMIT]
-        fit.sort(key=lambda t: -min(2, SM_SMEM // (smem(*t) + 1024)))  # stable
+        if not f32:
+            fit.sort(key=lambda t: -min(2, SM_SMEM // (smem(*t) + 1024)))  # stable
         if not fit:
             sc = (SMEM_LIMIT - QUERY_STAGES * tn * lds - G * tn * 8) // lds - tm + 1
             fit = [(min(sc, S), 1)] if sc >= 1 else []
@@ -307,9 +338,7 @@ def align_reduce(
     argoff = torch.empty(B, n_songs, dtype=torch.int32, device=db.device)
     if B == 0 or n_songs == 0:
         return best, argoff
-    plan = dict(tn=0, tm=0, rowsum=False, G=0, sc=0, abuf=0, smem=0)
-    if db.dtype != torch.float32:
-        plan = tile_plan(B, S, d, db.element_size(), R, n_songs)
+    plan = tile_plan(B, S, d, db.element_size(), R, n_songs)
     lib = _load()
     with torch.cuda.device(db.device):
         rc = lib.align_reduce_launch(

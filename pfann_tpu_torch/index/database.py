@@ -18,8 +18,10 @@ indexer keys ``screen_pool_k``, ``screen_top_m``, ``screen_coarse_dtype``,
 and ``backend``, and the topk engine (``engine="topk"``: top-k per query
 row, then the sequence rerank, ``index/search.py``).  A query with more
 windows than the fast engines' layout pad is served by the topk engine,
-with one warning per length, as in the JAX package.  The sharded engine
-raises NotImplementedError (ROADMAP: multi-GPU).
+with one warning per length, as in the JAX package.  ``sharded: true`` is
+served on the one ``device`` by the engine the config names, as the JAX
+package serves it when one device is visible (sharding over several cards
+is ROADMAP item 1.16, multi-GPU).
 """
 
 from __future__ import annotations
@@ -110,10 +112,13 @@ class Database:
             engine = "screen"
         if engine not in ("align", "screen", "topk"):
             raise ValueError("unknown engine %r (align, screen or topk)" % (engine,))
-        if self.params.get("sharded", False):
-            raise NotImplementedError(
-                "sharded search is not ported (ROADMAP: multi-GPU)"
-            )
+        if self.params.get("sharded", False) and engine != "topk":
+            # the JAX package shards only over more than one device
+            # (pfann_tpu/index/database.py:163); its answers are the
+            # unsharded engine's
+            logger.info("sharded: true: serving with the %s engine on %s; sharding "
+                        "over several cards is not ported (ROADMAP 1.16)",
+                        engine, device)
         self.engine = engine
         # align_pad: explicit indexer knob > index_meta (builder's
         # max_query_sec) > engine default

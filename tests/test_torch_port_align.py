@@ -309,9 +309,8 @@ def test_database_matches_jax(tmp_path, db_dtype, fsm):
 
 def test_database_align_pad_from_meta_and_limits(tmp_path):
     """align_pad comes from index_meta.json; a query longer than the pad and
-    the topk engine give JAX's answers (the topk fallback); only the
-    sharded engine raises NotImplementedError, and an unknown device or
-    engine ValueError; the screened engine is served."""
+    the topk engine give JAX's answers (the topk fallback); an unknown
+    device or engine raises ValueError; the screened engine is served."""
     rng = np.random.default_rng(2)
     counts = np.asarray([60, 70])
     root = str(tmp_path / "db")
@@ -332,8 +331,6 @@ def test_database_align_pad_from_meta_and_limits(tmp_path):
                                         j.query_top1_batch(long_q)):
             assert la == lja
             assert ls == pytest.approx(ljs, abs=0.004)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchDatabase(root, {"sharded": True, "top_k": 5}, hop_size=0.5, device="cpu")
     with pytest.raises(ValueError, match="cuda or cpu"):
         TorchDatabase(root, {"top_k": 5}, hop_size=0.5, device="meta")
     with pytest.raises(ValueError, match="engine"):
@@ -342,3 +339,33 @@ def test_database_align_pad_from_meta_and_limits(tmp_path):
         sdb = TorchDatabase(root, dict(screen, top_k=5), hop_size=0.5, device="cpu")
         assert sdb.engine == "screen" and sdb._align.pad == 48
         assert sdb.query_top1_batch(q)[0][1] == (tid, tt)
+
+
+@pytest.mark.parametrize("engine", ["align", "screen"])
+def test_database_sharded_matches_jax(tmp_path, engine):
+    """``sharded: true`` is served on one device by the engine the config
+    names; the JAX package shards it over the 8 CPU devices of
+    tests/conftest.py.  Equal songs and times, mean scores within 1e-5
+    (f32), for the top-1 path and the full per-song tables."""
+    rng = np.random.default_rng(5 if engine == "align" else 6)
+    counts = rng.integers(20, 50, size=16)
+    d = 8
+    root = str(tmp_path / "db")
+    emb = _write_db(root, counts, d, rng)
+    params = {"top_k": 5, "db_dtype": "float32", "sharded": True, "engine": engine,
+              "screen_top_m": 4, "backend": "exact"}
+    jdb = JaxDatabase(root, params, hop_size=0.5)
+    tdb = TorchDatabase(root, params, hop_size=0.5, device="cpu")
+    assert jdb._sharded is not None and jdb._sharded.engine == engine
+    assert tdb.engine == engine
+    queries = _queries(rng, emb, counts, 6, 1, lens=[19, 7, 12])
+    for (ts, ta), (js, ja) in zip(tdb.query_top1_batch(queries),
+                                  jdb.query_top1_batch(queries)):
+        assert ta == ja
+        assert ts == pytest.approx(js, abs=1e-5)
+    for (ts, ta, ttab), (js, ja, jtab) in zip(tdb.query_embeddings_batch(queries),
+                                              jdb.query_embeddings_batch(queries)):
+        assert ta == ja
+        assert ts == pytest.approx(js, abs=1e-5)
+        if engine == "align":  # the screen's tables hold only its survivors
+            np.testing.assert_allclose(ttab[:, 0], jtab[:, 0], rtol=0, atol=1e-5)

@@ -27,6 +27,7 @@ from pfann_tpu_torch.index import align_kernel
 from pfann_tpu_torch.index.align import build_uniform_layout
 from pfann_tpu_torch.index.align_kernel import (
     CHAIN_MAX_SD,
+    F32_TILE,
     INT8_MAX_SD,
     QUERY_STAGES,
     QUERY_TILES,
@@ -35,6 +36,8 @@ from pfann_tpu_torch.index.align_kernel import (
     align_reduce,
     align_reduce_reference,
     copy_bytes,
+    row_stride,
+    smem_bytes,
     tile_plan,
 )
 
@@ -233,6 +236,57 @@ def test_tile_plan_takes_every_pr2_shape():
                     assert plan["smem"] <= SMEM_LIMIT
 
 
+def _covered_once(plan, B, n_songs):
+    """The plan's grid covers every query and every song exactly once."""
+    gx, gy = plan["grid"]
+    songs, queries = np.zeros(n_songs, np.int32), np.zeros(B, np.int32)
+    for x in range(gx):
+        songs[x * plan["G"] : (x + 1) * plan["G"]] += 1
+    for y in range(gy):
+        queries[y * plan["tn"] : (y + 1) * plan["tn"]] += 1
+    return (songs == 1).all() and (queries == 1).all()
+
+
+@pytest.mark.parametrize("R", [40, 152, 160])
+@pytest.mark.parametrize("d", [4, 12, 128])
+@pytest.mark.parametrize("S", [1, 5, 19, 32, 119])
+@pytest.mark.parametrize("B", [1, 7, 32, 65, 1024])
+def test_f32_tile_plan(B, S, d, R):
+    """The f32 plan fits shared memory, its grid covers every (song,
+    query) once, its query tile is the smallest tile that holds B, it
+    takes two A stages where they fit, and it splits the window rows into
+    chunks only where a whole window does not fit (S = 119 at d = 128 with
+    64 queries a block)."""
+    n_songs = 1009  # prime: no G divides it
+    plan = tile_plan(B, S, d, 4, R, n_songs)
+    tn, G, sc = plan["tn"], plan["G"], plan["sc"]
+    assert plan["smem"] <= SMEM_LIMIT
+    assert tn == min(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
+    assert (plan["tm"], plan["threads"]) == F32_TILE
+    assert not plan["rowsum"] and 1 <= sc <= S and plan["abuf"] in (1, 2)
+    assert plan["smem"] == smem_bytes(d, 4, plan["tm"], tn, G, sc, plan["abuf"])
+    assert row_stride(d, 4) == 4 * d + 16  # float4 rows, 16 bytes apart in banks
+    whole = smem_bytes(d, 4, plan["tm"], tn, G, S, 2)
+    assert plan["abuf"] == (2 if whole <= SMEM_LIMIT else 1)
+    assert (sc < S) == (smem_bytes(d, 4, plan["tm"], tn, G, S, 1) > SMEM_LIMIT)
+    if d == 128 and S == 119 and B >= 64:
+        assert sc < S
+    assert _covered_once(plan, B, n_songs)
+
+
+def test_f32_tile_plan_serving_shapes():
+    """At the f32 serving shapes a block owns whole songs, wastes under 2%
+    of its rows rounding to subtiles, and takes 64 queries a block (32 at
+    the matcher's batch)."""
+    for B, S, R, n_songs, tn in ((1024, 19, 152, 10_000, 64), (32, 19, 152, 10_000, 32),
+                                 (1024, 5, 40, 100_000, 64), (256, 19, 160, 100_000, 64)):
+        plan = tile_plan(B, S, 128, 4, R, n_songs)
+        rows = plan["G"] * R
+        waste = (-(-rows // plan["tm"]) * plan["tm"] - rows) / rows
+        assert plan["tn"] == tn and plan["G"] > 1 and waste < 0.02, plan
+        assert plan["sc"] == S
+
+
 def test_copy_bytes():
     assert copy_bytes(256, 0, 4096) == 16
     assert copy_bytes(24, 0, 4096) == 8
@@ -383,6 +437,30 @@ def test_kernel_shapes_on_card(cuda_device, monkeypatch, B, S, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("B", [1, 32, 256, 1024])
+def test_kernel_short_k_on_card(cuda_device, monkeypatch, dtype, B):
+    """The screened engine's stage-1 shape: regions of R = 40 rows, S = 5
+    (K = 640 at d = 128, an epilogue every few K-steps), many songs a
+    block (one SM assumed), n_songs not a multiple of G and no trailing
+    zero rows."""
+    monkeypatch.setattr(align_kernel, "SMS", 1)
+    rng = np.random.default_rng(B + 5)
+    S, d, R, n_songs = 5, 128, 40, 397
+    db = rng.standard_normal((n_songs * R, d)).astype(np.float32)
+    qs = rng.standard_normal((B, S, d)).astype(np.float32)
+    if dtype == torch.int8:
+        db, qs = (np.clip(np.rint(x * 40), -127, 127).astype(np.int8) for x in (db, qs))
+    else:
+        db /= np.linalg.norm(db, axis=1, keepdims=True)
+        qs /= np.sqrt(d)
+    plan = tile_plan(B, S, d, torch.empty((), dtype=dtype).element_size(), R, n_songs)
+    assert n_songs % plan["G"]
+    _hold_to_plain(torch.from_numpy(db).to(cuda_device, dtype),
+                   torch.from_numpy(qs).to(cuda_device, dtype), R, S, n_songs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("B", [1, 32, 1024])
 def test_kernel_ties_on_card(cuda_device, monkeypatch, dtype, B):
     """Exact ties go to the later offset: one window planted twice in song
@@ -400,7 +478,7 @@ def test_kernel_ties_on_card(cuda_device, monkeypatch, dtype, B):
     qs[0] = win
     for row in (100, 280, R + 10):
         db[row : row + S] = win
-    plan = tile_plan(B, S, d, 1 if dtype == torch.int8 else 2, R, n_songs)
+    plan = tile_plan(B, S, d, torch.empty((), dtype=dtype).element_size(), R, n_songs)
     if B > 1:
         assert plan["G"] >= 2  # songs 0 and 1 share a block
     npd = np.int8 if dtype == torch.int8 else np.float32
