@@ -67,6 +67,18 @@ Phases, in order; any failure raises and the script exits nonzero:
          shape, the default TSV), extractemb -> matchemb on both engines
          and matcher after rebuild (the default TSV), matchfromgt (the
          crops' songs and offsets), cppmatcher (recall 16/16).
+  8. the landmark front end (pfann_tpu_torch/landmark/device.py, torch
+     ops, no align-reduce kernel): (a) DevicePeakExtractor (batch 32,
+     pipeline 4) on 256 songs x 30 s at 8 kHz in int16 (bench.py's
+     landmark songs), after a warm-up on 32 other songs; audio-s/s of the
+     card and of the numpy host path (core.extract_hashes), hash
+     agreement >= 0.999 with the host path; on 8 of the songs the card
+     against the same torch code on the CPU, where every differing peak
+     must lie within 1e-3 of the median gate or of a tie in its window;
+     (b) lm_builder then lm_matcher on phase 5's corpus and crops, with
+     the card extractor and with PFANN_LM_DEVICE=0 (the numpy path):
+     recall 16/16, the two TSVs equal, the .bin entries that differ
+     counted; wall s of each.  No landmark path may launch align_reduce.
 
 Phases 3, 4, 6 and 7 (f1) print each kernel's time beside its bound (the
 larger of the operations over the card's published dense peak for their
@@ -81,9 +93,9 @@ a library route).
 Every kernel shape that is timed is held to the plain version on the
 same inputs; each f32 path prints the f32 form's largest |dbest| on a
 line of its own.  Each path (phase 5's two engines, phase 6's batches,
-phase 7's paths) is driven with the kernel's launch counts set to 0 just
-before it and read just after; the kernels line gives each form's (bf16,
-int8, f32) launches per path.  The line before the last is a JSON object
+phase 7's and phase 8's paths) is driven with the kernel's launch counts
+set to 0 just before it and read just after; the kernels line gives each
+form's (bf16, int8, f32) launches per path.  The line before the last is a JSON object
 describing each kernel; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -111,6 +123,8 @@ from pfann_tpu_torch import (  # noqa: E402
     builder,
     cppmatcher,
     extractemb,
+    lm_builder,
+    lm_matcher,
     matchemb,
     matcher,
     matchfromgt,
@@ -140,8 +154,16 @@ from pfann_tpu_torch.index.screen import (  # noqa: E402
     quantize_queries_int8,
 )
 from pfann_tpu_torch.index.saliency import save_saliency_png  # noqa: E402
+from pfann_tpu_torch.landmark import core as lm_core  # noqa: E402
+from pfann_tpu_torch.landmark.device import (  # noqa: E402
+    DevicePeakExtractor,
+    as_device_input,
+    log_spectrogram,
+    peak_mask,
+)
 from pfann_tpu_torch.models.fp_network import build_fp_network  # noqa: E402
 from pfann_tpu_torch.utils.checkpoint import save_model  # noqa: E402
+from pfann_tpu_torch.utils.config import read_file_list  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # best may differ from the plain version's by f32 rounding of S*d-term sums
@@ -946,6 +968,181 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
     return f32
 
 
+def lm_song(seed, n, sr=8000):
+    """bench.py's landmark song (bench.py:811-824): decaying tone bursts
+    over a noise floor, int16-quantised as a decoded WAV."""
+    r = np.random.default_rng(seed)
+    out = 0.01 * r.standard_normal(n).astype(np.float32)
+    t = 0
+    while t < n:
+        dur = min(int(sr * r.uniform(0.1, 0.4)), n - t)
+        tt = np.arange(dur, dtype=np.float32) / sr
+        tone = np.sin(2 * np.pi * r.uniform(100, 3500) * tt)
+        out[t : t + dur] += (r.uniform(0.3, 0.8) * tone * np.exp(-tt * 20)).astype(np.float32)
+        t += dur + int(sr * r.uniform(0.05, 0.2))
+    out = 0.6 * out / max(float(np.abs(out).max()), 1e-9)
+    return (np.clip(out, -1, 1) * 32767).astype(np.int16)
+
+
+def hash_agreement(a_pairs, b_pairs):
+    """bench.py's landmark agreement: shared (hash, anchor) pairs over the
+    larger set, summed over songs."""
+    agree = total = 0
+    for (ha, ta), (hb, tb) in zip(a_pairs, b_pairs):
+        a, b = set(zip(ha.tolist(), ta.tolist())), set(zip(hb.tolist(), tb.tolist()))
+        agree += len(a & b)
+        total += max(len(a), len(b), 1)
+    return agree / max(total, 1)
+
+
+def flips_in_noise(wav, card_peaks, plain_peaks, tol=1e-3):
+    """Peaks of one song where the card and the plain version (the same
+    torch code on the CPU) differ, and how many of them lie within ``tol``
+    (log units) of the median gate or of a neighbour's value in their
+    local-max window, by the plain version's spectrum."""
+    a, b = set(map(tuple, card_peaks.tolist())), set(map(tuple, plain_peaks.tolist()))
+    diff = sorted(a ^ b)
+    if not diff:
+        return 0, 0
+    nf = 1 + (max(len(wav), lm_core.N_FFT) - lm_core.N_FFT) // lm_core.HOP
+    buf, _ = DevicePeakExtractor(device="cpu").stage_chunk([(0, wav, nf)])
+    spec = log_spectrogram(buf)[0, :nf].numpy().T  # [F, T]
+    gate = np.median(spec) + lm_core.MIN_GAIN
+    noisy = 0
+    for f, t in diff:
+        win = spec[max(f - lm_core.NEIGH_F // 2, 0) : f + lm_core.NEIGH_F // 2 + 1,
+                   max(t - lm_core.NEIGH_T // 2, 0) : t + lm_core.NEIGH_T // 2 + 1]
+        others = np.sort(win.ravel())[::-1]
+        tie = abs(others[0] - others[1]) <= tol and spec[f, t] >= others[1]
+        noisy += bool(abs(spec[f, t] - gate) <= tol or tie)
+    return len(diff), noisy
+
+
+def landmark_front_end(dev, card, tmp, p5, n_songs=256):
+    """Phase 8: the landmark front end.  (a) DevicePeakExtractor (batch 32,
+    pipeline 4) on n_songs x 30 s of bench.py's landmark songs against the
+    numpy host path (hash agreement >= 0.999, audio-s/s of both), and on 8
+    of them against the same torch code on the CPU; (b) lm_builder and
+    lm_matcher on phase 5's corpus and crops (p5: lst, qlist, truth), with
+    the card extractor and with PFANN_LM_DEVICE=0.  Every landmark path
+    must launch no align-reduce kernel."""
+    phase(8, "the landmark front end: DevicePeakExtractor on the card, lm_builder + "
+             "lm_matcher")
+    sr, seconds = 8000, 30.0
+    n = int(sr * seconds)
+    tm = time.perf_counter()
+    wavs = [lm_song(i, n) for i in range(n_songs)]
+    dev_in = [as_device_input(w.astype(np.float32) / 32768) for w in wavs]
+    if any(w.dtype != np.int16 for w in dev_in):
+        raise AssertionError("8a: the decoded-WAV songs do not ride as int16")
+    print("  corpus: %d songs x %.0f s at %d Hz, int16 (%.1f s to make)" % (
+        n_songs, seconds, sr, time.perf_counter() - tm), flush=True)
+    ex = DevicePeakExtractor(batch=32, pipeline=4, device=dev)
+    # warm-up on distinct songs at the measured batch size
+    ex.extract([lm_song(n_songs + i, n) for i in range(ex.batch)])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tm = time.perf_counter()
+    card_peaks = ex.extract(dev_in)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - tm
+    tm = time.perf_counter()
+    card_hashes = [lm_core.pair_peaks(p) for p in card_peaks]
+    t_pair = time.perf_counter() - tm
+    launches = record("8a: DevicePeakExtractor, %d songs" % n_songs)
+    if any(launches.values()):
+        raise AssertionError("8a: the landmark front end launched align_reduce: %s" % launches)
+    tm = time.perf_counter()
+    host_hashes = [lm_core.extract_hashes(w.astype(np.float32) / 32768) for w in wavs]
+    t_host = time.perf_counter() - tm
+    agree = hash_agreement(host_hashes, card_hashes)
+    audio_s = n_songs * seconds
+    n_peaks = sum(len(p) for p in card_peaks)
+    print("  card extractor: %.3f s for %.0f audio-s = %.1f audio-s/s (peaks); with host "
+          "pairing %.3f s = %.1f audio-s/s; numpy host path (core.extract_hashes) %.3f s = "
+          "%.1f audio-s/s; %d peaks, %d hashes; hash agreement with the host path %.6f  %s" % (
+              t_card, audio_s, audio_s / t_card, t_card + t_pair, audio_s / (t_card + t_pair),
+              t_host, audio_s / t_host, n_peaks, sum(len(h) for h, _ in card_hashes), agree,
+              card), flush=True)
+    if agree < 0.999:
+        raise AssertionError("8a: hash agreement %.6f < 0.999" % agree)
+    # the device share: peak_mask alone on one staged chunk of 32 songs
+    chunk = [(i, w, 1 + (n - lm_core.N_FFT) // lm_core.HOP) for i, w in enumerate(dev_in[:32])]
+    buf, valid = (x.to(dev) for x in ex.stage_chunk(chunk))
+    mask_ms = time_ms(lambda: peak_mask(buf, valid), 5)
+    T = buf.shape[1] // lm_core.HOP - (lm_core.N_FFT // lm_core.HOP - 1)
+    moved = buf.numel() * buf.element_size() + 32 * (lm_core.N_FFT // 2 + 1) * -(-T // 8)
+    print("  peak_mask alone: %.3f ms per chunk of 32 songs (%.1f audio-s/s of device time; "
+          "%d chunks = %.3f s of the extractor's %.3f s); the int16 in and the packed mask "
+          "out move %.1f MB, %.4f ms at 3.35 TB/s  %s" % (
+              mask_ms, 32 * seconds / (mask_ms / 1e3), -(-n_songs // 32),
+              -(-n_songs // 32) * mask_ms / 1e3, t_card, moved / 1e6,
+              moved / HBM_BYTES_S * 1e3, card), flush=True)
+    del buf, valid
+    # the card against its plain version: the same torch code on the CPU
+    tm = time.perf_counter()
+    plain = DevicePeakExtractor(batch=8, device="cpu").extract(dev_in[:8])
+    plain_s = time.perf_counter() - tm
+    n_diff = n_noise = 0
+    for w, c, p in zip(dev_in[:8], card_peaks[:8], plain):
+        d, z = flips_in_noise(w, c, p)
+        n_diff += d
+        n_noise += z
+    print("  card vs the same torch code on the CPU (8 songs, %.3f s there): %d of %d peaks "
+          "differ, %d of them within 1e-3 of the gate or of a window tie  %s" % (
+              plain_s, n_diff, sum(len(p) for p in plain), n_noise, card), flush=True)
+    if n_diff != n_noise:
+        raise AssertionError("8a: %d peaks differ from the plain version away from the "
+                             "gate and from ties" % (n_diff - n_noise))
+
+    # (b) the CLIs on phase 5's corpus and crops
+    out = os.path.join(tmp, "out8")
+    runs = {}
+    for tag, env in (("card extractor", None), ("PFANN_LM_DEVICE=0", "0")):
+        db_dir = os.path.join(out, tag.split()[0].split("=")[0].lower() + "_db")
+        res = os.path.join(out, os.path.basename(db_dir)[:-3] + "_result.txt")
+        os.makedirs(out, exist_ok=True)
+        if env is not None:
+            os.environ["PFANN_LM_DEVICE"] = env
+        try:
+            secs = []
+            for name, fn, argv in (("lm_builder", lm_builder.main, [p5["lst"], db_dir]),
+                                   ("lm_matcher", lm_matcher.main, [p5["qlist"], db_dir, res])):
+                reset_launch_counts()
+                tm = time.perf_counter()
+                fn([name, *argv, "--device", dev.type])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - tm)
+                n = record("8b: %s, %s" % (name, tag))
+                if any(n.values()):
+                    raise AssertionError("8b: %s launched align_reduce: %s" % (name, n))
+        finally:
+            os.environ.pop("PFANN_LM_DEVICE", None)
+        runs[tag] = (db_dir, res, secs)
+    (cdb, cres, csecs), (hdb, hres, hsecs) = runs["card extractor"], runs["PFANN_LM_DEVICE=0"]
+    answers = [ln.rstrip("\n").split("\t")[1] for ln in open(cres)]
+    hits = sum(a == s for a, (_, s, _) in zip(answers, p5["truth"]))
+    if hits != len(p5["truth"]):
+        raise AssertionError("8b: landmark recall %d/%d" % (hits, len(p5["truth"])))
+    if open(cres, "rb").read() != open(hres, "rb").read():
+        raise AssertionError("8b: the card extractor's TSV differs from the host path's")
+    cbin, hbin = (np.fromfile(r + ".bin", np.int32) for r in (cres, hres))
+    n_db = len(read_file_list(p5["lst"]))
+    if cbin.shape != hbin.shape or cbin.size != len(p5["truth"]) * n_db * 2:
+        raise AssertionError("8b: .bin holds %d and %d int32" % (cbin.size, hbin.size))
+    triples = []
+    for db_dir in (cdb, hdb):
+        with np.load(os.path.join(db_dir, "landmarks.npz")) as z:
+            triples.append(set(zip(*(z[k].tolist() for k in ("hashes", "songs", "anchors")))))
+    db_agree = len(triples[0] & triples[1]) / max(len(triples[0]), len(triples[1]), 1)
+    print("  lm_builder %.2f s + lm_matcher %.2f s on the card (phase 5's %d songs, %d crops); "
+          "PFANN_LM_DEVICE=0: %.2f s + %.2f s; recall %d/%d; TSV == the host path's; .bin "
+          "entries differing %d of %d; index triples agreeing %.6f; align-reduce launches 0  "
+          "%s" % (csecs[0], csecs[1], n_db, len(p5["truth"]), hsecs[0], hsecs[1], hits,
+                  len(p5["truth"]), int((cbin != hbin).sum()), cbin.size, db_agree, card),
+          flush=True)
+
+
 def main() -> None:
     # ---------------------------------------------------------------- 1
     phase(1, "card")
@@ -1267,8 +1464,9 @@ def main() -> None:
 
         shot = screen_scenario(dev, card)
         max_err = max(max_err, shot["bf16_err"])
-        f1 = rest_of_serving(dev, card, tmp, emb, shot.pop("corpus"),
-                             dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth))
+        p5 = dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth, lst=lst)
+        f1 = rest_of_serving(dev, card, tmp, emb, shot.pop("corpus"), p5)
+        landmark_front_end(dev, card, tmp, p5)
 
     # every driven path's launches, phases 5-7 (0 where a path runs none)
     launches = sum(p["bf16"] for p in PATHS.values())

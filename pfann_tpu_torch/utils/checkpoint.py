@@ -296,10 +296,19 @@ def load_model(path_or_dir: str) -> dict[str, torch.Tensor]:
         return params_from_flax(msgpack_restore(f.read()))
 
 
+def _sorted_tree(tree):
+    """The tree with every map's keys in sorted order, as ``jax.tree.map``
+    leaves them before the JAX package's ``save_model`` serializes."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def save_model(path_or_dir: str, state_dict: dict[str, torch.Tensor]) -> str:
-    """Write the port's FpNetwork state dict as ``model.msgpack`` in the
-    layout ``pfann_tpu.utils.checkpoint.load_model`` reads."""
+    """Write the port's FpNetwork state dict as ``model.msgpack``: the
+    bytes ``pfann_tpu.utils.checkpoint.save_model`` writes for the same
+    weights (keys sorted), which its ``load_model`` reads."""
     path = _model_path(path_or_dir)
     with open(path, "wb") as f:
-        f.write(msgpack_serialize({"params": params_to_flax(state_dict)}))
+        f.write(msgpack_serialize(_sorted_tree({"params": params_to_flax(state_dict)})))
     return path

@@ -1,7 +1,7 @@
 """The engines and paths that run as torch ops on the card (no align-reduce
 kernel): the score_alpha paths of the exhaustive and screened engines,
-the topk engine, the long-query fallback and the saliency gradient, each
-on a card against the same code on the CPU.
+the topk engine, the long-query fallback, the saliency gradient and the
+landmark peak extractor, each on a card against the same code on the CPU.
 
 Like tests/test_torch_port_kernel.py this file imports no jax, so it runs
 on a machine with a card and no JAX package:
@@ -197,3 +197,51 @@ def test_embed_with_saliency_on_card(cuda_device, tmp_path):
     np.testing.assert_allclose(gg, cg, rtol=1e-3, atol=2e-3)
     scale = np.maximum(np.abs(cdg).max(axis=1, keepdims=True), 1e-12)
     assert np.mean(np.abs(gdg - cdg) <= 5e-2 * scale) >= 0.99
+
+
+def _tone_bursts(seed, seconds, sr=8000):
+    """Decaying tone bursts over a 0.01 noise floor (bench.py's landmark
+    songs), float32 in [-0.6, 0.6]."""
+    r = np.random.default_rng(seed)
+    n = int(sr * seconds)
+    out = 0.01 * r.standard_normal(n).astype(np.float32)
+    t = 0
+    while t < n:
+        dur = min(int(sr * r.uniform(0.1, 0.4)), n - t)
+        tt = np.arange(dur, dtype=np.float32) / sr
+        out[t : t + dur] += (r.uniform(0.3, 0.8) * np.sin(2 * np.pi * r.uniform(100, 3500) * tt)
+                             * np.exp(-tt * 20)).astype(np.float32)
+        t += dur + int(sr * r.uniform(0.05, 0.2))
+    return 0.6 * out / max(float(np.abs(out).max()), 1e-9)
+
+
+@pytest.mark.cuda
+def test_peak_extractor_on_card(cuda_device):
+    """The landmark front end (torch ops) on the card against the same
+    code on the CPU: peaks agree on >= 0.999 of cells (cuFFT and the CPU
+    FFT differ in f32 rounding, which can flip a cell at the median gate
+    or at a tie in its window).  On the card, an int16 chunk (scaled on
+    the device), the same signal as f32 and an int16 member of a mixed
+    chunk (rescaled on the host) give the same peaks."""
+    from pfann_tpu_torch.landmark.device import DevicePeakExtractor
+
+    wavs = [_tone_bursts(i, s) for i, s in enumerate((30.0, 3.0, 1.3, 5.01, 0.05))]
+    wavs.append(np.zeros(400, np.float32))
+    card = DevicePeakExtractor(batch=3, pipeline=2, device=cuda_device).extract(wavs)
+    cpu = DevicePeakExtractor(batch=3, device="cpu").extract(wavs)
+    same = total = 0
+    for c, p in zip(card, cpu):
+        assert c.dtype == np.int32 and (np.diff(c[:, 1]) >= 0).all()
+        a, b = set(map(tuple, c.tolist())), set(map(tuple, p.tolist()))
+        same += len(a & b)
+        total += max(len(a), len(b))
+    assert total > 100 and same >= 0.999 * total, (same, total)
+
+    q = (np.clip(wavs[1], -1, 1) * 32767).astype(np.int16)
+    ex = DevicePeakExtractor(batch=2, device=cuda_device)
+    as_i16 = ex.extract([q, q])[0]
+    as_f32 = ex.extract([q.astype(np.float32) / 32768] * 2)[0]
+    mixed = ex.extract([q, wavs[1]])[0]
+    assert as_i16.shape[0] > 0
+    np.testing.assert_array_equal(as_i16, as_f32)
+    np.testing.assert_array_equal(as_i16, mixed)

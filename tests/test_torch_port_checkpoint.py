@@ -129,3 +129,19 @@ def test_weight_bridge_roundtrip(tmp_path, fuller):
     ):
         assert k == k2
         np.testing.assert_array_equal(np.asarray(v), np.asarray(v2))
+
+
+@pytest.mark.parametrize("fuller", [True, False])
+def test_save_model_bytes_equal_jax_save_model(tmp_path, fuller):
+    """The port's save_model writes the bytes the JAX package's save_model
+    writes for the same weights (its keys sorted, as jax.tree.map leaves
+    them), so tools converting a model give byte-equal files."""
+    from pfann_tpu.utils import checkpoint as jckpt
+
+    cfg = dict(CFG, model={"d": 8, "h": 32, "u": 4, "fuller": fuller})
+    variables = jax.jit(jax_build(cfg).init)(jax.random.key(5), jnp.zeros((1, 256, 32)))
+    path, out = str(tmp_path / "jax.msgpack"), str(tmp_path / "port.msgpack")
+    jckpt.save_model(path, variables)
+    tckpt.save_model(out, tckpt.load_model(path))
+    with open(path, "rb") as f, open(out, "rb") as g:
+        assert g.read() == f.read()

@@ -59,7 +59,17 @@ def test_port_modules_import_without_pfann_tpu_or_jax():
                      "pfann_tpu_torch.cppmatcher", "pfann_tpu_torch.genquery",
                      "pfann_tpu_torch.index.search", "pfann_tpu_torch.index.native",
                      "pfann_tpu_torch.index.saliency", "pfann_tpu_torch.data.noise",
-                     "pfann_tpu_torch.data.ir", "pfann_tpu_torch.data.querygen"):
+                     "pfann_tpu_torch.data.ir", "pfann_tpu_torch.data.querygen",
+                     "pfann_tpu_torch.landmark", "pfann_tpu_torch.landmark.core",
+                     "pfann_tpu_torch.landmark.device", "pfann_tpu_torch.lm_builder",
+                     "pfann_tpu_torch.lm_matcher", "pfann_tpu_torch.genquery_naf",
+                     "pfann_tpu_torch.tools.merge_dbs",
+                     "pfann_tpu_torch.tools.convert_pfann_torch",
+                     "pfann_tpu_torch.tools.convert_naf_to_pfann",
+                     "pfann_tpu_torch.tools.make_synth_corpus",
+                     "pfann_tpu_torch.tools.listaudio", "pfann_tpu_torch.tools.wham",
+                     "pfann_tpu_torch.tools.createdataset",
+                     "pfann_tpu_torch.tools.screen_rank_diag"):
         assert expected in names
 
 
