@@ -79,6 +79,27 @@ Phases, in order; any failure raises and the script exits nonzero:
      the card extractor and with PFANN_LM_DEVICE=0 (the numpy path):
      recall 16/16, the two TSVs equal, the .bin entries that differ
      counted; wall s of each.  No landmark path may launch align_reduce.
+  9. training on the card (torch ops, no align-reduce kernel on its
+     paths): (a) the flagship train step (configs/default.json widths,
+     bf16 compute, Adam) at 640 and 1,280 rows and the LAMB step at 640:
+     ms a step by CUDA events over 8 distinct batches after 2 warm-up
+     steps, optimizer.step alone, the first loss (within 10% of
+     log(n - 1)), the global grad norm (finite), peak memory, the step's
+     FLOPs (3 x the forward's, counted from the conv and projector
+     shapes) and their share of the bf16 dense peak; and one f32 step
+     (TF32 off) on 32 rows held to the same step on the CPU, with ReLU
+     (loosely: a ReLU input at the kink may flip) and ELU (tightly); (b) a
+     synthetic corpus (tools.make_synth_corpus: 60 train, 10 val, 16 test
+     songs x 30 s), python -m pfann_tpu_torch.train for 2 epochs in a
+     child process with the real loader (noise, room IR, mic IR on the
+     card): finite losses, the checkpoint contract's files, validation
+     top-1/10; the rerun (in-process) reports a finished model; builder
+     + matcher with the trained model on 16 hop-aligned 10 s crops
+     (recall 16/16, the bf16 kernel launched); export_model of epoch 0
+     equal to checkpoint 0's params; (c) epoch 2's wall, segments/s, the
+     loader's host and dispatch seconds (metrics.jsonl), the augment
+     program alone a batch, and which of host and card sets the pace;
+     (d) the --mock CLI (in-process) at 640 rows a step.
 
 Phases 3, 4, 6 and 7 (f1) print each kernel's time beside its bound (the
 larger of the operations over the card's published dense peak for their
@@ -93,7 +114,7 @@ a library route).
 Every kernel shape that is timed is held to the plain version on the
 same inputs; each f32 path prints the f32 form's largest |dbest| on a
 line of its own.  Each path (phase 5's two engines, phase 6's batches,
-phase 7's and phase 8's paths) is driven with the kernel's launch counts
+phase 7's, 8's and 9's in-process paths) is driven with the kernel's launch counts
 set to 0 just before it and read just after; the kernels line gives each
 form's (bf16, int8, f32) launches per path.  The line before the last is a JSON object
 describing each kernel; the last line is {"ok": true, "device": {...}}.
@@ -101,8 +122,11 @@ describing each kernel; the last line is {"ok": true, "device": {...}}.
 
 import collections
 import concurrent.futures
+import contextlib
 import csv
+import io
 import json
+import math
 import os
 import re
 import shutil
@@ -130,8 +154,9 @@ from pfann_tpu_torch import (  # noqa: E402
     matchfromgt,
     rebuild,
 )
-from pfann_tpu_torch.audio.io import write_wav  # noqa: E402
+from pfann_tpu_torch.audio.io import get_audio, write_wav  # noqa: E402
 from pfann_tpu_torch.data.musicdata import MusicDataset  # noqa: E402
+from pfann_tpu_torch.data.segments import SegmentedDataLoader  # noqa: E402
 from pfann_tpu_torch.index import align_kernel, native  # noqa: E402
 from pfann_tpu_torch.index.align import (  # noqa: E402
     AlignmentEngine,
@@ -162,8 +187,13 @@ from pfann_tpu_torch.landmark.device import (  # noqa: E402
     peak_mask,
 )
 from pfann_tpu_torch.models.fp_network import build_fp_network  # noqa: E402
+from pfann_tpu_torch.tools import export_model, make_synth_corpus  # noqa: E402
+from pfann_tpu_torch.train.__main__ import main as train_main  # noqa: E402
+from pfann_tpu_torch.train.trainer import Trainer  # noqa: E402
+from pfann_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from pfann_tpu_torch.utils.checkpoint import save_model  # noqa: E402
 from pfann_tpu_torch.utils.config import read_file_list  # noqa: E402
+from pfann_tpu_torch.utils.rng import seeded_generator  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # best may differ from the plain version's by f32 rounding of S*d-term sums
@@ -1143,6 +1173,321 @@ def landmark_front_end(dev, card, tmp, p5, n_songs=256):
           flush=True)
 
 
+def fwd_flops_per_row(model):
+    """Forward operations of one row through FpNetwork: 2 x the multiply-
+    adds of every conv (output volume x input channels per group x kernel)
+    and of the projector's two grouped einsums."""
+    total = 0
+    for block in model.f.blocks:
+        for conv, ln in ((block.conv1, block.ln1), (block.conv2, block.ln2)):
+            c_out, f_out, t_out = ln.shape
+            kh, kw = conv.kernel_size
+            total += 2 * c_out * f_out * t_out * (conv.in_channels // conv.groups) * kh * kw
+    d, v, u = model.g.w1.shape
+    return total + 2 * d * (v * u + u)
+
+
+def grad_norm(model):
+    return float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters())))
+
+
+def step_timing(tr, rows, dev, reps=8):
+    """(ms per train step by CUDA events over ``reps`` distinct batches
+    after two warm-up steps, first step's loss, global grad norm after it,
+    peak MB, optimizer.step alone in ms)."""
+    F, T = tr.model.F, tr.model.T
+    g = torch.Generator(device=dev).manual_seed(rows)
+    xs = [torch.randn(rows, F, T, device=dev, generator=g) * 2 - 4 for _ in range(reps + 2)]
+    draws = [tr.specaug.draw(seeded_generator(123, rows, i), F, T) for i in range(reps + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = float(tr.train_step(xs[0], draws[0]))
+    gnorm = grad_norm(tr.model)
+    tr.train_step(xs[1], draws[1])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [tr.train_step(xs[i + 2], draws[i + 2]) for i in range(reps)]
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    if not (np.isfinite(first) and np.isfinite(gnorm)
+            and torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError("9a: non-finite loss or grads at %d rows" % rows)
+    opt_ms = time_ms(tr.optimizer.step, reps)
+    del xs
+    return ms, first, gnorm, peak_mb, opt_ms
+
+
+def profile_steps(tr, rows, dev, n=2):
+    """torch.profiler over ``n`` warm train steps: (the device's busy share
+    of their wall time, [(kernel, device ms a step)] for the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    F, T = tr.model.F, tr.model.T
+    xs = [torch.randn(rows, F, T, device=dev) * 2 - 4 for _ in range(n)]
+    draws = [tr.specaug.draw(seeded_generator(7, rows, i), F, T) for i in range(n)]
+    tr.train_step(xs[0], draws[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tm = time.perf_counter()
+        for x, d in zip(xs, draws):
+            tr.train_step(x, d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tm
+    # kernels only: an op's row repeats the time of the kernels it launched
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in kernels) / 1e6 / wall
+    top = sorted(((k, t / 1e3 / n) for k, t in kernels), key=lambda kv: -kv[1])
+    return busy, top[:10]
+
+
+def f32_step_parity(cfg, dev, card):
+    """One f32 step (TF32 off) at full width on 32 rows, the card against
+    the CPU on the same params, batch and mask; with the flagship's ReLU
+    and with ELU.  A ReLU input within rounding of 0 can take the other
+    side of the kink on the other device and drop or keep its whole
+    gradient (on an H100 one such input moved the gradient of every
+    layer below it by ~0.6%), so ReLU is held loosely and ELU,
+    whose derivative is continuous, tightly."""
+    x = torch.from_numpy((np.random.default_rng(11).standard_normal((32, 256, 32)) * 2 - 4)
+                         .astype(np.float32))
+    lr = cfg["lr"]
+    # (grad L2 rel, share of params within 1e-3 lr after the Adam step)
+    gates = {"ReLU": (2e-2, 0.99), "ELU": (1e-4, 0.999)}
+    for act, (grad_gate, share_gate) in gates.items():
+        c = dict(cfg, model=dict(cfg["model"], conv_activation=act))
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            tr = Trainer(c, compute_dtype=torch.float32, device=d)
+            tr.init_state(seed=5)
+            loss = tr.train_step(x.to(d), tr.specaug.draw(seeded_generator(123, 0, 0), 256, 32))
+            out[d.type] = (float(loss), [p.grad.cpu().double() for p in tr.model.parameters()],
+                           [p.detach().cpu() for p in tr.model.parameters()])
+            del tr
+        (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[dev.type]
+        loss_rel = abs(lg / lc - 1)
+        grad_rel = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(gg, gc)))
+                         / torch.sqrt(sum((b ** 2).sum() for b in gc)))
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+        share = float((diff <= 1e-3 * lr).float().mean())
+        print("  9a f32 step (%s), card vs CPU, 32 rows at full width, TF32 off: loss %.7f vs "
+              "%.7f (rel %.2e), grad L2 rel %.2e, params after the Adam step within 1e-3 lr "
+              "on %.6f of entries (max |dp| %.3f lr)  %s" % (
+                  act, lg, lc, loss_rel, grad_rel, share, float(diff.max()) / lr, card),
+              flush=True)
+        if loss_rel > 1e-5 or grad_rel > grad_gate or share < share_gate:
+            raise AssertionError("9a: the card's f32 %s step differs from the CPU's" % act)
+
+
+def train_cli(argv, cwd, timeout):
+    """python -m pfann_tpu_torch.train in a child process; its stdout."""
+    r = subprocess.run([sys.executable, "-m", "pfann_tpu_torch.train"] + argv, cwd=cwd,
+                       env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                       text=True, timeout=timeout)
+    if r.returncode:
+        raise AssertionError("train CLI exited %d: %s" % (r.returncode, r.stderr[-3000:]))
+    return r.stdout
+
+
+def epoch_metrics(model_dir):
+    """{(tag, epoch): value} from the trainer's metrics.jsonl."""
+    with open(os.path.join(model_dir, "metrics.jsonl")) as fh:
+        rows = [json.loads(ln) for ln in fh]
+    return {(r["tag"], r["step"]): r["value"] for r in rows}
+
+
+def training_on_card(dev, card, model=None, rows=(640, 1280), train_songs=60,
+                     mock_sizes=(3200, 640)):
+    """Phase 9: training on the card (no align-reduce kernel on its paths).
+    (a) the flagship train step (bf16, Adam; and LAMB) at 640 and 1,280
+    rows, and one f32 step against the CPU; (b) python -m
+    pfann_tpu_torch.train for 2 epochs on a synthetic corpus with the real
+    loader (noise, room IR, mic IR on the card), the checkpoint contract,
+    export_model, then builder + matcher with the trained model; (c) where
+    the time goes in epoch 2; (d) the --mock CLI at flagship width.  The
+    keywords cut the run for a rehearsal on the CPU (``model`` replaces
+    the flagship's widths; ``rows[0]`` is the rows of a batch_size step)."""
+    phase(9, "training on the card: train step, python -m pfann_tpu_torch.train, "
+             "builder + matcher with the trained model")
+    with open(os.path.join(REPO, "configs", "default.json")) as fh:
+        flagship = json.load(fh)
+    if model is not None:
+        flagship["model"] = model
+    on = ["--device", dev.type]
+    n0 = rows[0]
+
+    # (a) ------------------------------------------------------------
+    reset_launch_counts()
+    tr = Trainer(flagship, compute_dtype=torch.bfloat16, device=dev)
+    per_row = fwd_flops_per_row(tr.model)
+    steps = {}  # rows -> (ms a step, optimizer.step ms)
+    for n in rows:
+        tr.init_state()  # each row count starts from the seed's weights
+        ms, first, gnorm, peak, opt_ms = step_timing(tr, n, dev)
+        flops = 3 * per_row * n
+        steps[n] = (ms, opt_ms)
+        print("  9a bf16 Adam step, %d rows: %.3f ms (optimizer.step alone %.3f ms); first "
+              "loss %.4f vs log(n-1) %.4f; grad norm %.4e; peak %.0f MB; %.3f TFLOP a step "
+              "(3 x %.4f GFLOP a row fwd), %.1f TFLOP/s, %.1f%% of the bf16 dense peak  %s" % (
+                  n, ms, opt_ms, first, math.log(n - 1), gnorm, peak, flops / 1e12,
+                  per_row / 1e9, flops / ms / 1e9, 100 * flops / ms / 1e9 / (PEAK_OPS[
+                      torch.bfloat16] / 1e12), card), flush=True)
+        if abs(first / math.log(n - 1) - 1) > 0.1:
+            raise AssertionError("9a: first loss %.4f not within 10%% of log(n-1)" % first)
+    busy, top = profile_steps(tr, n0, dev)
+    print("  9a profile of 2 steps at %d rows (torch.profiler): device busy %.1f%% of the wall; "
+          "device ms a step, top kernels: %s  %s" % (n0, 100 * busy, "; ".join(
+              "%s %.3f" % (k[:60], t) for k, t in top), card), flush=True)
+    del tr
+    lamb = Trainer(dict(flagship, optimizer="lamb"), compute_dtype=torch.bfloat16, device=dev)
+    lamb.init_state()
+    ms, first, gnorm, peak, opt_ms = step_timing(lamb, n0, dev)
+    print("  9a bf16 LAMB step, %d rows: %.3f ms (optimizer.step alone %.3f ms); first loss "
+          "%.4f; grad norm %.4e  %s" % (n0, ms, opt_ms, first, gnorm, card), flush=True)
+    del lamb
+    torch.cuda.empty_cache()
+    record("9a: train steps (Adam at %s rows, LAMB at %d)" % (rows, n0))
+    f32_step_parity(flagship, dev, card)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # (b) --------------------------------------------------------
+        root = os.path.join(tmp, "synth")
+        tm = time.perf_counter()
+        make_synth_corpus.main(["make_synth_corpus", "--root", root, "--train-songs", str(train_songs),
+                                "--val-songs", "10", "--db-songs", "0", "--test-songs", "16",
+                                "--seconds", "30"])
+        corpus_s = time.perf_counter() - tm
+        lists = os.path.join(root, "lists")
+        cfg = dict(flagship, batch_size=n0, epoch=2, cache_dir=os.path.join(tmp, "caches"),
+                   model_dir=os.path.join(tmp, "model"), music_dir=os.path.join(root, "music"),
+                   train_csv=os.path.join(lists, "music_train.csv"),
+                   validate_csv=os.path.join(lists, "music_val.csv"),
+                   test_csv=os.path.join(lists, "music_test.csv"))
+        for name in ("noise", "air", "micirp"):
+            cfg[name] = dict(flagship[name], dir=os.path.join(root, name),
+                             train=os.path.join(lists, "%s_train.csv" % name),
+                             validate=os.path.join(lists, "%s_val.csv" % name))
+        cfg_path = os.path.join(tmp, "train.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh, indent=2)
+        md = cfg["model_dir"]
+        tm = time.perf_counter()
+        out = train_cli(["-p", cfg_path, "-w", "4"] + on, tmp, 900)
+        train_s = time.perf_counter() - tm
+        losses = [float(s.split()[0]) for s in out.split("loss: ")[1:]]
+        top1 = [float(s.split()[0]) for s in out.split("validate score: ")[1:]]
+        top10 = [float(s.split()[0]) for s in out.split("validate top10: ")[1:]]
+        n_train = int(out.split("training data contains ")[1].split()[0])
+        if len(losses) != 2 or not np.isfinite(losses).all() or len(top1) != 2:
+            raise AssertionError("9b: epoch losses %s, top-1 %s" % (losses, top1))
+        for name in ("checkpoint0.ckpt", "checkpoint1.ckpt", "epochs.txt", "date.txt",
+                     "configs.json", "metrics.jsonl", "model.msgpack"):
+            if not os.path.exists(os.path.join(md, name)):
+                raise AssertionError("9b: model dir lacks " + name)
+        if ckpt.last_epoch(md) != 1:
+            raise AssertionError("9b: epochs.txt says %d" % ckpt.last_epoch(md))
+        print("  9b corpus %.1f s (%d train + 10 val + 16 test songs x 30 s); train CLI "
+              "%.1f s wall for 2 epochs of %d segments: losses %s, validation top-1 %s, "
+              "top-10 %s  %s" % (corpus_s, train_songs, train_s, n_train, losses, top1, top10, card),
+              flush=True)
+        reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_main(["train", "-p", cfg_path, "-w", "4"] + on)
+        if "This model has finished training!" not in buf.getvalue():
+            raise AssertionError("9b: the rerun did not report a finished model")
+        record("9b: train CLI rerun (finished model), in-process")
+
+        # builder + matcher with the trained model
+        test_songs = read_file_list(os.path.join(lists, "db.txt"))
+        qdir = os.path.join(tmp, "queries")
+        os.makedirs(qdir)
+        rng = np.random.default_rng(9)
+        truth = []
+        for qi in range(16):
+            s = test_songs[qi]
+            wav, _ = get_audio(s)
+            start = int(rng.integers(0, 40)) * 4000  # hop-aligned 10 s crops
+            qpath = os.path.join(qdir, "q%02d.wav" % qi)
+            write_wav(qpath, wav.mean(axis=0)[start : start + 80000], 8000)
+            truth.append((qpath, s))
+        qlist = os.path.join(tmp, "queries.txt")
+        with open(qlist, "w") as fh:
+            fh.writelines(q + "\n" for q, _ in truth)
+        db_dir, res = os.path.join(tmp, "db"), os.path.join(tmp, "out", "result.txt")
+        reset_launch_counts()
+        builder.main(["builder", os.path.join(lists, "db.txt"), db_dir, md] + on)
+        matcher.main(["matcher", qlist, db_dir, res] + on)
+        torch.cuda.synchronize()
+        lb = record("9b: builder + matcher, trained model")["bf16"]
+        answers = [ln.split("\t")[1] for ln in open(res).read().splitlines()]
+        hits = sum(a == s for a, (_, s) in zip(answers, truth))
+        print("  9b builder + matcher with the trained model: recall %d/16 on clean "
+              "hop-aligned crops, bf16 kernel launches %d  %s" % (hits, lb, card), flush=True)
+        if hits != 16 or lb < 1:
+            raise AssertionError("9b: recall %d/16, %d bf16 launches" % (hits, lb))
+        export_model.main(["export_model", md, "0"])
+        exported = ckpt.load_model(md)
+        c0 = ckpt.load_checkpoint(md, 0)["params"]
+        if sorted(exported) != sorted(c0) or not all(torch.equal(exported[n], c0[n])
+                                                     for n in c0):
+            raise AssertionError("9b: export_model's model.msgpack differs from checkpoint 0")
+        print("  9b export_model <model dir> 0: model.msgpack == checkpoint0.ckpt params")
+
+        # (c) where the time goes in epoch 2 (epoch 1 built the caches)
+        m = epoch_metrics(md)
+        ep = {k: m[("train/" + k, 1)] for k in ("epoch_s", "steps", "host_s", "dispatch_s")}
+        ep["steps"] = int(ep["steps"])
+        reset_launch_counts()
+        loader = SegmentedDataLoader("train", cfg, num_workers=4, device=dev)
+        ds = loader.dataset
+        x_org, x_aug = (torch.from_numpy(x).to(dev) for x in ds.get_batch(
+            list(range(n0 // 2)), False, np.random.default_rng(0)))
+        k = iter(range(100))
+        aug_ms = time_ms(lambda: loader.augment(
+            x_org, x_aug, loader.augment.draw(seeded_generator(777, 9, next(k)), n0 // 2)), 8)
+        record("9c: augment alone")
+        producer = ep["host_s"] + ep["dispatch_s"]
+        step_ms, opt_ms = steps[n0]
+        card_s = ep["steps"] * (aug_ms + step_ms) / 1e3
+        print("  9c epoch 2: %.3f s for %d steps, %.1f segments/s (2 x %d segments); loader "
+              "host_s %.3f, dispatch_s %.3f, rest %.3f s; corpus on the card: %s; augment "
+              "alone %.3f ms per %d-pair batch; card work per epoch ~%.3f s (steps x "
+              "(augment + %d-row step))  %s" % (
+                  ep["epoch_s"], ep["steps"], 2 * n_train / ep["epoch_s"], n_train,
+                  ep["host_s"], ep["dispatch_s"], ep["epoch_s"] - producer,
+                  loader.corpus_dev is not None, aug_ms, n0 // 2, card_s, n0, card), flush=True)
+        parts = {"augment": aug_ms, "forward/backward and mask": step_ms - opt_ms,
+                 "optimizer": opt_ms}
+        pace = "the card" if card_s >= producer else "the host (loader producer)"
+        print("  9c pace: %s (card ~%.3f s vs producer %.3f s of %.3f s); on the card per "
+              "step: %s  %s" % (pace, card_s, producer, ep["epoch_s"], ", ".join(
+                  "%s %.3f ms" % kv for kv in parts.items()), card), flush=True)
+        del loader, x_org, x_aug
+
+        # (d) the --mock CLI at flagship width, in-process ------------
+        mock_cfg = dict(flagship, batch_size=n0, epoch=1, mock_sizes=list(mock_sizes),
+                        model_dir=os.path.join(tmp, "mock_model"))
+        mock_path = os.path.join(tmp, "mock.json")
+        with open(mock_path, "w") as fh:
+            json.dump(mock_cfg, fh)
+        reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_main(["train", "-p", mock_path, "--mock", "-w", "0"] + on)
+        record("9d: train CLI --mock, in-process")
+        m = epoch_metrics(mock_cfg["model_dir"])
+        mock_ms = m[("train/epoch_s", 0)] / m[("train/steps", 0)] * 1e3
+        print("  9d --mock, %d rows a step: %.3f ms a step over %d steps (host "
+              "batches, loss %.4f)  %s" % (n0, mock_ms, m[("train/steps", 0)],
+                                           m[("train/loss", 0)], card), flush=True)
+    for path in [p for p in PATHS if p.startswith("9") and "matcher" not in p]:
+        if any(PATHS[path].values()):
+            raise AssertionError("%s launched the align-reduce kernel" % path)
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # ---------------------------------------------------------------- 1
     phase(1, "card")
@@ -1467,6 +1812,7 @@ def main() -> None:
         p5 = dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth, lst=lst)
         f1 = rest_of_serving(dev, card, tmp, emb, shot.pop("corpus"), p5)
         landmark_front_end(dev, card, tmp, p5)
+    training_on_card(dev, card)
 
     # every driven path's launches, phases 5-7 (0 where a path runs none)
     launches = sum(p["bf16"] for p in PATHS.values())

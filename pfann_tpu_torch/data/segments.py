@@ -1,0 +1,358 @@
+"""Training dataset: cached music corpus -> augmented segment pairs
+(port of ``pfann_tpu/data/segments.py``).
+
+Parity target: datautil/dataset_v2.py:38-307 —
+  * int16 memmap of the pre-resampled concatenated corpus (the cache
+    format of preprocess.py, byte-compatible with the reference's)
+  * per-segment cue table with allowed left/right shifts
+    (dataset_v2.py:82-104)
+  * pair cropping: eval_time_shift mode (org fixed at +T/4, aug random in
+    [0, T/2]) vs train mode (both random in time_offset - segment)
+    (dataset_v2.py:126-149)
+  * fftconv_n = next pow2 >= segment + pad_start + air_len + ir_len
+    (dataset_v2.py:52-58)
+  * TwoStageShuffler + BatchSampler(batch_size // 2) plumbing
+    (dataset_v2.py:268-307)
+
+:class:`MusicSegmentDataset` is a host copy of the JAX package's: the cue
+stream from ``np.random.default_rng(1000 + epoch)`` is bit-identical.  The
+host computes only crop cues; the samples move on the device.  With the
+int16 corpus resident on the card (``device_corpus`` auto, <= 2 GiB),
+:func:`gather_windows` crops every batch there; otherwise the host gathers
+the windows and ships them as int16.  Augmentation and log-mel run on the
+device (``ops/augment.py``), with their random draws from a CPU generator
+seeded from (777, epoch, step).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from pfann_tpu_torch.data.preprocess import ensure_music_cache
+from pfann_tpu_torch.data.shuffler import TwoStageShuffler, batched
+from pfann_tpu_torch.ops.augment import Augment, bass_shelf_power_response
+from pfann_tpu_torch.ops.melspec import build_mel_spec_layer
+from pfann_tpu_torch.utils.rng import seeded_generator
+
+
+class MusicSegmentDataset:
+    def __init__(self, params: dict[str, Any], train_val: str, num_workers: int = 4):
+        assert train_val in {"train", "validate"}
+        sample_rate = params["sample_rate"]
+        self.segment_size = int(params["segment_size"] * sample_rate)
+        self.hop_size = int(params["hop_size"] * sample_rate)
+        self.time_offset = int(params["time_offset"] * sample_rate)
+        self.pad_start = int(params["pad_start"] * sample_rate)
+        self.params = params
+
+        # fft size needed for reverb (dataset_v2.py:52-58)
+        fftconv_n = 1024
+        air_len = int(params.get("air", {}).get("length", 0) * sample_rate)
+        ir_len = int(params.get("micirp", {}).get("length", 0) * sample_rate)
+        fft_needed = self.segment_size + self.pad_start + air_len + ir_len
+        while fftconv_n < fft_needed:
+            fftconv_n *= 2
+        self.fftconv_n = fftconv_n
+
+        # augmentation corpora (host load; device banks built by the loader)
+        self.noise = self.air = self.micirp = None
+        if params.get("noise", {}).get(train_val):
+            from pfann_tpu_torch.data.noise import NoiseData
+
+            self.noise = NoiseData(
+                noise_dir=params["noise"]["dir"],
+                list_csv=params["noise"][train_val],
+                sample_rate=sample_rate,
+                cache_dir=params["cache_dir"],
+            )
+        if params.get("air", {}).get(train_val):
+            from pfann_tpu_torch.data.ir import AIR
+
+            self.air = AIR(
+                air_dir=params["air"]["dir"],
+                list_csv=params["air"][train_val],
+                length=params["air"]["length"],
+                fftconv_n=fftconv_n,
+                sample_rate=sample_rate,
+            )
+        if params.get("micirp", {}).get(train_val):
+            from pfann_tpu_torch.data.ir import MicIRP
+
+            self.micirp = MicIRP(
+                mic_dir=params["micirp"]["dir"],
+                list_csv=params["micirp"][train_val],
+                length=params["micirp"]["length"],
+                fftconv_n=fftconv_n,
+                sample_rate=sample_rate,
+            )
+
+        # music cache (memmap)
+        prefix = ensure_music_cache(params, train_val, num_workers=num_workers)
+        self.f = np.memmap(prefix + ".bin", dtype=np.int16, mode="r")
+        song_len = np.load(prefix + ".npy")
+
+        # cue tables (dataset_v2.py:82-104)
+        cues, offset_left, offset_right, song_range = [], [], [], []
+        t = 0
+        for duration in song_len.tolist():
+            num_segs = (duration - self.segment_size + self.hop_size) // self.hop_size
+            start_cue = len(cues)
+            for idx in range(num_segs):
+                my_time = idx * self.hop_size
+                cues.append(t + my_time)
+                offset_left.append(my_time)
+                offset_right.append(duration - my_time)
+            song_range.append((start_cue, len(cues)))
+            t += duration
+        self.cues = np.asarray(cues, dtype=np.int64)
+        self.offset_left = np.asarray(offset_left, dtype=np.int64)
+        self.offset_right = np.asarray(offset_right, dtype=np.int64)
+        self.song_range = song_range
+
+    def __len__(self) -> int:
+        return len(self.cues)
+
+    def get_num_songs(self) -> int:
+        return len(self.song_range)
+
+    def get_single_segment(self, idx: int, offset: int, length: int) -> np.ndarray:
+        """One window of pad_start + length samples, zero-padded at the
+        song edges (dataset_v2.py:109-124).  Returned as raw int16 — the
+        1/32768 scaling happens on device, so host->device transfers stay
+        2 bytes/sample."""
+        cue = int(self.cues[idx]) + offset
+        left = int(self.offset_left[idx]) + offset
+        right = int(self.offset_right[idx]) - offset
+        seg = self.f[cue - min(left, self.pad_start) : cue + min(right, length)]
+        return np.pad(
+            seg, [max(0, self.pad_start - left), max(0, length - right)]
+        )
+
+    def get_batch_cues(
+        self, indices: list[int], eval_time_shift: bool, rng: np.random.Generator
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Crop cues for one batch (the host part of dataset_v2.py:126-149
+        reduced to index math): returns int64 (org_start [B], aug_start
+        [B], lo [B], hi [B]) where org/aug windows are the absolute-sample
+        slices [start, start + W) of the corpus and [lo, hi) is the valid
+        sample range of each row's song (outside -> zero, the
+        get_single_segment edge-padding convention).  The rng draw order
+        matches the round-3 per-segment implementation exactly, so batch
+        streams are bit-identical."""
+        idx = np.asarray(indices)
+        seg = self.segment_size
+        c0 = self.cues[idx]
+        l0 = self.offset_left[idx]
+        r0 = self.offset_right[idx]
+        if eval_time_shift:
+            shift_range = seg // 2
+            # org fixed at +T/4, aug random in [0, T/2] around cue-T/4
+            cue = c0 - seg // 4
+            left = l0 - seg // 4
+            right = r0 + seg // 4
+            length = seg + shift_range
+            offset1 = np.full(len(idx), seg // 4)
+            offset2 = rng.integers(0, shift_range + 1, len(idx))
+        else:
+            shift_range = self.time_offset - seg
+            cue, left, right, length = c0, l0, r0, self.time_offset
+            if self.params.get("time_shift_type", "triangle") == "uniform":
+                # uniform RELATIVE shift (legacy v1 semantics,
+                # dataset.py:266-274): draw the gap uniformly, then place
+                # the pair randomly and randomly order org/aug
+                n = len(idx)
+                shft = rng.integers(0, shift_range + 1, n)
+                mov = rng.integers(0, shift_range - shft + 1, n)
+                swap = rng.random(n) > 0.5
+                offset1 = np.where(swap, shft + mov, mov)
+                offset2 = np.where(swap, mov, shft + mov)
+            else:
+                # independent uniform positions => triangular relative
+                # shift (dataset_v2.py:143-144)
+                offset1 = rng.integers(0, shift_range + 1, len(idx))
+                offset2 = rng.integers(0, shift_range + 1, len(idx))
+        lo = cue - np.minimum(left, self.pad_start)
+        hi = cue + np.minimum(right, length)
+        org_start = cue + offset1
+        aug_start = cue - self.pad_start + offset2
+        return org_start, aug_start, lo, hi
+
+    def _gather_host(
+        self, starts: np.ndarray, lo: np.ndarray, hi: np.ndarray, W: int
+    ) -> np.ndarray:
+        """One vectorized fancy-index gather of [B, W] int16 windows with
+        song-edge zeroing (replaces the round-3 per-segment Python
+        slicing+padding loop — the 'vectorize host segment assembly' item
+        of VERDICT r3 next #3)."""
+        idx = starts[:, None] + np.arange(W, dtype=np.int64)[None, :]
+        x = self.f[np.clip(idx, 0, self.f.shape[0] - 1)]
+        ok = (idx >= lo[:, None]) & (idx < hi[:, None])
+        return np.where(ok, x, np.int16(0))
+
+    def get_batch(
+        self, indices: list[int], eval_time_shift: bool, rng: np.random.Generator
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Host part of __getitem__ (dataset_v2.py:126-149): returns
+        (x_org [B, segment], x_aug_raw [B, pad_start + segment])."""
+        org_start, aug_start, lo, hi = self.get_batch_cues(
+            indices, eval_time_shift, rng
+        )
+        x_org = self._gather_host(org_start, lo, hi, self.segment_size)
+        x_aug = self._gather_host(
+            aug_start, lo, hi, self.pad_start + self.segment_size
+        )
+        return x_org, x_aug
+
+
+def gather_windows(
+    corpus: torch.Tensor,
+    org_start: torch.Tensor,
+    aug_start: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    *,
+    w_org: int,
+    w_aug: int,
+    shift: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device-side batch crop: ``corpus`` is the int16 cache padded with
+    ``shift`` zeros at both ends; starts/lo/hi are absolute sample cues
+    (``get_batch_cues``), int64 on the corpus's device.  Each row is one
+    strided window; samples outside the row's [lo, hi) are zeroed, so the
+    result equals :meth:`MusicSegmentDataset._gather_host` bit for bit."""
+
+    def take(starts, W):
+        rows = corpus.unfold(0, W, 1)[starts + shift]
+        idx = starts[:, None] + torch.arange(W, device=starts.device)[None, :]
+        ok = (idx >= lo[:, None]) & (idx < hi[:, None])
+        return torch.where(ok, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+    return take(org_start, w_org), take(aug_start, w_aug)
+
+
+class SegmentedDataLoader:
+    """Builds the dataset, shuffler and device augmentation, and yields
+    log-mel pair batches [b, 2 (or 1), F, T] on ``device``
+    (dataset_v2.py:268-307 interface)."""
+
+    # device_corpus 'auto' uploads caches up to this size
+    DEVICE_CORPUS_MAX_BYTES = 2 << 30
+
+    def __init__(self, train_val: str, configs: dict[str, Any], num_workers: int = 4,
+                 device: torch.device | str = "cuda"):
+        assert train_val in {"train", "validate"}
+        self.device = torch.device(device)
+        self.dataset = MusicSegmentDataset(configs, train_val, num_workers)
+        assert configs["batch_size"] % 2 == 0
+        self.batch_size = configs["batch_size"]
+        self.configs = configs
+        self.shuffler = TwoStageShuffler(
+            len(self.dataset),
+            configs.get("shuffle_size"),
+            song_ranges=self.dataset.song_range,
+        )
+        self.shuffle = True
+        self.augmented = True
+        self.eval_time_shift = False
+        self.epoch = 0
+
+        ds = self.dataset
+        dev = self.device
+
+        def bank(data):
+            return None if data is None else torch.from_numpy(data).to(dev)
+
+        noise_cfg = configs.get("noise", {})
+        band_power = None
+        if noise_cfg.get("snr_only_in_f_range", False):
+            # SNR measured after a -24 dB bass shelf below f_min
+            # (reference dataset.py:209-226, configs/snr.json)
+            band_power = torch.from_numpy(bass_shelf_power_response(
+                ds.pad_start + ds.segment_size, configs["sample_rate"], -24.0,
+                configs["f_min"],
+            )).to(dev)
+        self.augment = Augment(
+            build_mel_spec_layer(configs).to(dev),
+            bank(ds.noise.data if ds.noise is not None else None),
+            bank(ds.air.data if ds.air is not None else None),
+            bank(ds.micirp.data if ds.micirp is not None else None),
+            fftconv_n=ds.fftconv_n,
+            pad_start=ds.pad_start,
+            segment_size=ds.segment_size,
+            snr_min=noise_cfg.get("snr_min", 0),
+            snr_max=noise_cfg.get("snr_max", 10),
+            band_power=band_power,
+        )
+
+        # device-resident corpus: 'auto' (default) uploads the int16 cache
+        # once when a card is the device and it fits, so per step only
+        # [B]-sized cue arrays cross to the card; True forces it, False
+        # keeps the host gather (the larger-than-memory choice)
+        mode = configs.get("device_corpus", "auto")
+        total_bytes = ds.f.shape[0] * 2
+        use_dev = mode is True or (
+            mode == "auto"
+            and dev.type == "cuda"
+            and total_bytes <= self.DEVICE_CORPUS_MAX_BYTES
+        )
+        self.corpus_dev = None
+        if use_dev:
+            # the cues cross as int32
+            if ds.f.shape[0] >= 2**31:
+                raise ValueError("int32 cue overflow: %d samples" % ds.f.shape[0])
+            self._gather_shift = ds.pad_start + ds.segment_size + max(
+                ds.time_offset, ds.segment_size
+            )
+            self.corpus_dev = torch.from_numpy(
+                np.pad(ds.f, (self._gather_shift, self._gather_shift))
+            ).to(dev)
+        # per-epoch host/dispatch phase split of the producer's time
+        self.last_stats: dict[str, float] = {}
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        self.shuffler.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        self.shuffler.shuffle = self.shuffle
+        rng = np.random.default_rng(1000 + self.epoch)
+        stats = {"host_s": 0.0, "dispatch_s": 0.0, "steps": 0}
+        self.last_stats = stats
+        ds, dev = self.dataset, self.device
+        for step, idx in enumerate(batched(iter(self.shuffler), self.batch_size // 2)):
+            t0 = time.perf_counter()
+            if self.corpus_dev is not None:
+                cues = ds.get_batch_cues(idx, self.eval_time_shift, rng)
+                t1 = time.perf_counter()
+                # non_blocking: a blocking copy waits for all work queued on
+                # the card, the train step included, and so would serialise
+                # this producer with the consumer
+                org_start, aug_start, lo, hi = (
+                    torch.from_numpy(a.astype(np.int32)).to(dev, non_blocking=True).long()
+                    for a in cues
+                )
+                x_org, x_aug = gather_windows(
+                    self.corpus_dev, org_start, aug_start, lo, hi,
+                    w_org=ds.segment_size,
+                    w_aug=ds.pad_start + ds.segment_size,
+                    shift=self._gather_shift,
+                )
+            else:
+                x_org, x_aug = ds.get_batch(idx, self.eval_time_shift, rng)
+                t1 = time.perf_counter()
+                x_org = torch.from_numpy(x_org).to(dev, non_blocking=True)
+                x_aug = torch.from_numpy(x_aug).to(dev, non_blocking=True)
+            draws = self.augment.draw(seeded_generator(777, self.epoch, step), len(idx))
+            out = self.augment(x_org, x_aug, draws, augmented=self.augmented)
+            t2 = time.perf_counter()
+            stats["host_s"] += t1 - t0
+            stats["dispatch_s"] += t2 - t1
+            stats["steps"] += 1
+            yield out
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // (self.batch_size // 2))

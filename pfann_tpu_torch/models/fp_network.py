@@ -204,3 +204,32 @@ def build_fp_network(
         relu_after_bn=model_params.get("relu_after_bn", True),
         compute_dtype=compute_dtype,
     )
+
+
+def _lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two standard deviations,
+    scaled so its variance is 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    t = torch.empty(p.shape)
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    p.copy_(t)
+
+
+@torch.no_grad()
+def init_like_flax(model: FpNetwork, generator: torch.Generator) -> None:
+    """Re-initialise ``model`` with the initialisers of the JAX FpNetwork
+    (``pfann_tpu/models/fp_network.py``): ``lecun_normal`` for every conv
+    kernel (fan-in = in_channels / groups * kh * kw) and for the projector's
+    ``w1``/``w2`` (``batch_axis=(0,)``, so fan-in = shape[1]), zeros for the
+    biases, ones and zeros for the LayerNorm affine.  Draws come from the
+    CPU ``generator``, so a seed gives the same weights on every device."""
+    for name, p in model.named_parameters():
+        kind = name.rsplit(".", 2)
+        if name in ("g.w1", "g.w2"):
+            _lecun_normal_(p, p.shape[1], generator)
+        elif kind[-2].startswith("conv") and kind[-1] == "weight":
+            _lecun_normal_(p, p[0].numel(), generator)
+        elif kind[-2].startswith("ln") and kind[-1] == "weight":
+            p.fill_(1.0)
+        else:
+            p.zero_()

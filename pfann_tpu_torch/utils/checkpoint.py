@@ -1,4 +1,6 @@
-"""``model.msgpack`` without flax or msgpack: reader, writer, weight bridge.
+"""``model.msgpack`` and training checkpoints without flax or msgpack:
+reader, writer, weight bridge, and the training half of
+``pfann_tpu/utils/checkpoint.py``.
 
 Every DB directory holds the model as ``flax.serialization.to_bytes`` of
 the variables tree (``pfann_tpu/utils/checkpoint.py:62-76``).  That is the
@@ -312,3 +314,63 @@ def save_model(path_or_dir: str, state_dict: dict[str, torch.Tensor]) -> str:
     with open(path, "wb") as f:
         f.write(msgpack_serialize(_sorted_tree({"params": params_to_flax(state_dict)})))
     return path
+
+
+# --------------------------------------------------------- training half
+def save_checkpoint(model_dir: str, epoch: int, state: dict[str, Any]) -> str:
+    """Write ``checkpoint{epoch}.ckpt`` and ``epochs.txt``, pruning as the
+    reference does (train.py:169-185): keep every 10th checkpoint, delete
+    ``checkpoint{epoch-10}.ckpt`` otherwise.
+
+    ``state`` is ``{"epoch", "params", "opt_state"}`` with ``params`` the
+    port's FpNetwork state dict.  ``params`` is written in the flax tree
+    layout with its ``params`` collection level, as the JAX trainer writes
+    it, so either package's ``export_model`` reads it; ``opt_state`` is the
+    port's own (see :func:`load_checkpoint`)."""
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, "checkpoint%d.ckpt" % epoch)
+    tree = {
+        "epoch": int(state["epoch"]),
+        "params": {"params": params_to_flax(state["params"])},
+        "opt_state": state["opt_state"],
+    }
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(_sorted_tree(tree)))
+    if epoch % 10 != 0:
+        try:
+            os.unlink(os.path.join(model_dir, "checkpoint%d.ckpt" % (epoch - 10)))
+        except OSError:
+            pass
+    with open(os.path.join(model_dir, "epochs.txt"), "w") as f:
+        f.write("%d\n" % epoch)
+    return path
+
+
+def last_epoch(model_dir: str) -> int:
+    """Last finished epoch per ``epochs.txt``, or -1 (train.py:223-226)."""
+    path = os.path.join(model_dir, "epochs.txt")
+    if os.path.exists(path):
+        with open(path) as f:
+            return int(f.read().strip())
+    return -1
+
+
+def load_checkpoint(model_dir: str, epoch: int) -> dict[str, Any]:
+    """Read ``checkpoint{epoch}.ckpt`` as ``{"epoch", "params" (the port's
+    state dict), "opt_state"}``.  The optimizer state must be the port's
+    (a map with an ``optimizer`` name); a checkpoint the JAX trainer wrote
+    holds optax state instead, and raises."""
+    path = os.path.join(model_dir, "checkpoint%d.ckpt" % epoch)
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    opt = tree.get("opt_state")
+    if not isinstance(opt, dict) or not isinstance(opt.get("optimizer"), str):
+        raise ValueError(
+            "%s holds an optimizer state this package did not write (keys %s; "
+            "an optax state from the JAX trainer?), so training cannot resume "
+            "from it.  Export its params with python -m "
+            "pfann_tpu_torch.tools.export_model and train in a new model_dir."
+            % (path, sorted(opt) if isinstance(opt, dict) else type(opt).__name__)
+        )
+    return {"epoch": tree["epoch"], "params": params_from_flax(tree["params"]),
+            "opt_state": opt}

@@ -21,6 +21,11 @@ def read_config(path: str) -> dict[str, Any]:
         return json.load(fin)
 
 
+def write_config(params: dict[str, Any], path: str) -> None:
+    with open(path, "w") as fout:
+        json.dump(params, fout, indent=2)
+
+
 _s3_resource = None
 
 

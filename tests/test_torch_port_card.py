@@ -245,3 +245,93 @@ def test_peak_extractor_on_card(cuda_device):
     assert as_i16.shape[0] > 0
     np.testing.assert_array_equal(as_i16, as_f32)
     np.testing.assert_array_equal(as_i16, mixed)
+
+
+# ---------------------------------------------------------------- training
+TRAIN_CFG = dict(TINY_MODEL, batch_size=16, epoch=2, lr=1e-3, tau=0.05,
+                 cutout_min=0.1, cutout_max=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "lamb"])
+def test_train_step_on_card_matches_cpu(cuda_device, optimizer):
+    """One train step in f32 compute, TF32 off, on the card against the
+    CPU: the same params (flax-like init from one seed), batch and mask.
+    Loss rtol 1e-5; each leaf's grad within 5e-4 of its norm; params after
+    the step within 1e-3 * lr on >= 99.9% of entries and 0.5 * lr on all
+    (an entry whose grad lies within rounding of 0 moves by a fraction of
+    lr in the first Adam/LAMB step)."""
+    from pfann_tpu_torch.train.trainer import Trainer
+    from pfann_tpu_torch.utils.rng import seeded_generator
+
+    cfg = dict(TRAIN_CFG, optimizer=optimizer)
+    x = torch.from_numpy((np.random.default_rng(11).standard_normal((32, 256, 32)) * 2 - 4)
+                         .astype(np.float32))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tr = Trainer(cfg, compute_dtype=torch.float32, device=dev)
+        tr.init_state(seed=5)
+        draws = tr.specaug.draw(seeded_generator(123, 0, 0), 256, 32)
+        loss = tr.train_step(x.to(dev), draws)
+        out[dev.type] = (float(loss), {n: p.grad.cpu() for n, p in tr.model.named_parameters()},
+                         {n: t.cpu() for n, t in tr.model.state_dict().items()})
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for n, g in gc.items():
+        assert float((gg[n] - g).norm()) <= 5e-4 * float(g.norm()), n
+    diff = torch.cat([(pg[n] - p).abs().flatten() for n, p in pc.items()])
+    assert float((diff <= 1e-3 * cfg["lr"]).float().mean()) >= 0.999
+    assert float(diff.max()) <= 0.5 * cfg["lr"]
+
+
+@pytest.mark.cuda
+def test_gather_windows_on_card_bit_equal_host(cuda_device):
+    """The device window gather against the host gather it replaces."""
+    import types
+
+    from pfann_tpu_torch.data.segments import MusicSegmentDataset, gather_windows
+
+    rng = np.random.default_rng(2)
+    f = rng.integers(-32768, 32767, 200_000, dtype=np.int16)
+    B, W_org, W_aug, shift = 64, 8000, 12000, 30000
+    starts = rng.integers(-4000, f.shape[0] - 4000, size=(2, B))
+    lo = np.minimum(starts[0], starts[1]) + rng.integers(0, 3000, B)
+    hi = lo + rng.integers(4000, 20000, B)
+    host = [MusicSegmentDataset._gather_host(types.SimpleNamespace(f=f), s, lo, hi, w)
+            for s, w in ((starts[0], W_org), (starts[1], W_aug))]
+    corpus = torch.from_numpy(np.pad(f, (shift, shift))).to(cuda_device)
+    cues = [torch.from_numpy(a).to(cuda_device) for a in (starts[0], starts[1], lo, hi)]
+    dev = gather_windows(corpus, *cues, w_org=W_org, w_aug=W_aug, shift=shift)
+    for h, d in zip(host, dev):
+        assert d.dtype == torch.int16
+        np.testing.assert_array_equal(d.cpu().numpy(), h)
+
+
+@pytest.mark.cuda
+def test_augment_on_card_matches_cpu(cuda_device):
+    """Noise, room IR, mic IR and log-mel on the card against the CPU with
+    fixed draws: log-mel within 2e-3 (cuFFT and the CPU FFT round
+    differently; the log-mel tolerance of the port's model tests)."""
+    from pfann_tpu_torch.ops.augment import Augment
+    from pfann_tpu_torch.ops.melspec import build_mel_spec_layer
+
+    rng = np.random.default_rng(3)
+    B, seg, pad, n_fft = 64, 8000, 4000, 32768
+    x_org = rng.integers(-20000, 20000, (B, seg), dtype=np.int16)
+    x_aug = rng.integers(-20000, 20000, (B, pad + seg), dtype=np.int16)
+    noise = (rng.standard_normal(100_000) * 0.3).astype(np.float32)
+    irs = np.zeros((5, 8000), np.float32)
+    irs[:, 0] = 1.0
+    irs[np.arange(5), rng.integers(1, 8000, 5)] = 0.4
+    spectra = np.fft.rfft(irs, n_fft).astype(np.complex64)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        aug = Augment(build_mel_spec_layer(TINY_MODEL).to(dev),
+                      torch.from_numpy(noise).to(dev), torch.from_numpy(spectra[:3]).to(dev),
+                      torch.from_numpy(spectra[3:]).to(dev), fftconv_n=n_fft, pad_start=pad,
+                      segment_size=seg, snr_min=0.0, snr_max=10.0)
+        draws = aug.draw(torch.Generator().manual_seed(7), B)
+        out[dev.type] = aug(torch.from_numpy(x_org).to(dev), torch.from_numpy(x_aug).to(dev),
+                            draws).cpu()
+    assert out["cuda"].shape == (B, 2, 256, 32)
+    np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(), rtol=0, atol=2e-3)

@@ -12,7 +12,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("pfann_tpu", "jax")
+FORBIDDEN = ("pfann_tpu", "jax", "flax", "optax")
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -69,7 +69,17 @@ def test_port_modules_import_without_pfann_tpu_or_jax():
                      "pfann_tpu_torch.tools.make_synth_corpus",
                      "pfann_tpu_torch.tools.listaudio", "pfann_tpu_torch.tools.wham",
                      "pfann_tpu_torch.tools.createdataset",
-                     "pfann_tpu_torch.tools.screen_rank_diag"):
+                     "pfann_tpu_torch.tools.screen_rank_diag",
+                     "pfann_tpu_torch.train", "pfann_tpu_torch.train.__main__",
+                     "pfann_tpu_torch.train.loss", "pfann_tpu_torch.train.schedule",
+                     "pfann_tpu_torch.train.trainer", "pfann_tpu_torch.ops.specaug",
+                     "pfann_tpu_torch.ops.augment", "pfann_tpu_torch.data.mock",
+                     "pfann_tpu_torch.data.shuffler", "pfann_tpu_torch.data.prefetch",
+                     "pfann_tpu_torch.data.preprocess", "pfann_tpu_torch.data.segments",
+                     "pfann_tpu_torch.preview", "pfann_tpu_torch.utils.rng",
+                     "pfann_tpu_torch.tools.export_model",
+                     "pfann_tpu_torch.tools.cosinedecay",
+                     "pfann_tpu_torch.tools.synthetic_demo"):
         assert expected in names
 
 
