@@ -7,6 +7,11 @@ shuffler/batch plumbing, enabled by ``train.py --mock``.
 
 ``configs['mock_sizes']`` = [train_N, val_N] overrides the defaults (used
 by tests to keep things tiny).
+
+``part = (rank, world_size)`` (set by a data-parallel trainer) makes each
+batch the rank's block of the global batch's interleaved rows, with the
+global row count: (rows [r1 - r0, F, T], 2 * pairs); only those pairs are
+read.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Any, Iterator
 import numpy as np
 
 from pfann_tpu_torch.data.shuffler import TwoStageShuffler, batched
+from pfann_tpu_torch.parallel.mesh import pair_block
 
 
 def make_false_data(rng: np.random.Generator, N: int, F: int, T: int) -> np.ndarray:
@@ -41,6 +47,7 @@ class MockedDataLoader:
         self.shuffle = True
         self.augmented = True
         self.eval_time_shift = False
+        self.part: tuple[int, int] | None = None
 
     def set_epoch(self, epoch: int) -> None:
         self.shuffler.set_epoch(epoch)
@@ -48,7 +55,12 @@ class MockedDataLoader:
     def __iter__(self) -> Iterator[np.ndarray]:
         self.shuffler.shuffle = self.shuffle
         for idx in batched(iter(self.shuffler), self.batch_size // 2):
-            yield self.dataset[np.asarray(idx)]
+            if self.part is None:
+                yield self.dataset[np.asarray(idx)]
+                continue
+            p0, p1, lo, hi = pair_block(len(idx), *self.part)
+            pairs = self.dataset[np.asarray(idx[p0:p1], dtype=np.int64)]
+            yield pairs.reshape((-1,) + pairs.shape[2:])[lo:hi], 2 * len(idx)
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // (self.batch_size // 2))

@@ -5,7 +5,8 @@ loader that thread queues device work (the window gather, augmentation and
 log-mel on the card), so each CUDA tensor it yields travels with an event
 recorded on the producer's stream after the work that made it; the
 consumer's stream waits on that event before it reads the batch.  The wait
-is on the device: the host never blocks on it.
+is on the device: the host never blocks on it.  An item may also be a tuple
+whose first element is the batch (a data-parallel rank's (rows, n)).
 """
 
 from __future__ import annotations
@@ -19,9 +20,14 @@ import torch
 _END = object()
 
 
+def _batch(item):
+    return item[0] if isinstance(item, tuple) else item
+
+
 def _ready_event(item):
-    """An event after the work that produced ``item`` on its CUDA stream,
-    or None for host data."""
+    """An event after the work that produced ``item``'s batch on its CUDA
+    stream, or None for host data."""
+    item = _batch(item)
     if isinstance(item, torch.Tensor) and item.is_cuda:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(item.device))
@@ -65,11 +71,12 @@ def prefetch(it: Iterable, depth: int = 2) -> Iterator:
                 raise entry
             item, ev = entry
             if ev is not None:
-                stream = torch.cuda.current_stream(item.device)
+                batch = _batch(item)
+                stream = torch.cuda.current_stream(batch.device)
                 stream.wait_event(ev)
                 # the allocator must not reuse the batch's memory on the
                 # producer's stream while this stream still reads it
-                item.record_stream(stream)
+                batch.record_stream(stream)
             yield item
     finally:
         stop.set()

@@ -22,6 +22,12 @@ int16 corpus resident on the card (``device_corpus`` auto, <= 2 GiB),
 the windows and ships them as int16.  Augmentation and log-mel run on the
 device (``ops/augment.py``), with their random draws from a CPU generator
 seeded from (777, epoch, step).
+
+``SegmentedDataLoader.part = (rank, world_size)`` (set by a data-parallel
+trainer): every rank draws the global batch's cues and augmentation draws,
+as one process does, and gathers, augments and log-mels only the pairs
+holding its block of the interleaved rows; it yields (rows [r1 - r0, F,
+T], the global row count).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from pfann_tpu_torch.data.preprocess import ensure_music_cache
 from pfann_tpu_torch.data.shuffler import TwoStageShuffler, batched
 from pfann_tpu_torch.ops.augment import Augment, bass_shelf_power_response
 from pfann_tpu_torch.ops.melspec import build_mel_spec_layer
+from pfann_tpu_torch.parallel.mesh import pair_block
 from pfann_tpu_torch.utils.rng import seeded_generator
 
 
@@ -259,6 +266,7 @@ class SegmentedDataLoader:
         self.augmented = True
         self.eval_time_shift = False
         self.epoch = 0
+        self.part: tuple[int, int] | None = None
 
         ds = self.dataset
         dev = self.device
@@ -325,8 +333,15 @@ class SegmentedDataLoader:
         ds, dev = self.dataset, self.device
         for step, idx in enumerate(batched(iter(self.shuffler), self.batch_size // 2)):
             t0 = time.perf_counter()
+            # the global batch's draws; a rank applies its pairs' share
+            draws = self.augment.draw(seeded_generator(777, self.epoch, step), len(idx))
+            take = slice(None)
+            if self.part is not None:
+                p0, p1, row_lo, row_hi = pair_block(len(idx), *self.part)
+                take = slice(p0, p1)
+                draws = type(draws)(*(None if d is None else d[take] for d in draws))
             if self.corpus_dev is not None:
-                cues = ds.get_batch_cues(idx, self.eval_time_shift, rng)
+                cues = [c[take] for c in ds.get_batch_cues(idx, self.eval_time_shift, rng)]
                 t1 = time.perf_counter()
                 # non_blocking: a blocking copy waits for all work queued on
                 # the card, the train step included, and so would serialise
@@ -342,17 +357,19 @@ class SegmentedDataLoader:
                     shift=self._gather_shift,
                 )
             else:
-                x_org, x_aug = ds.get_batch(idx, self.eval_time_shift, rng)
+                x_org, x_aug = (x[take] for x in ds.get_batch(idx, self.eval_time_shift, rng))
                 t1 = time.perf_counter()
                 x_org = torch.from_numpy(x_org).to(dev, non_blocking=True)
                 x_aug = torch.from_numpy(x_aug).to(dev, non_blocking=True)
-            draws = self.augment.draw(seeded_generator(777, self.epoch, step), len(idx))
             out = self.augment(x_org, x_aug, draws, augmented=self.augmented)
             t2 = time.perf_counter()
             stats["host_s"] += t1 - t0
             stats["dispatch_s"] += t2 - t1
             stats["steps"] += 1
-            yield out
+            if self.part is None:
+                yield out
+            else:
+                yield out.reshape((-1,) + out.shape[2:])[row_lo:row_hi], 2 * len(idx)
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // (self.batch_size // 2))

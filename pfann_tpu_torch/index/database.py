@@ -18,10 +18,15 @@ indexer keys ``screen_pool_k``, ``screen_top_m``, ``screen_coarse_dtype``,
 and ``backend``, and the topk engine (``engine="topk"``: top-k per query
 row, then the sequence rerank, ``index/search.py``).  A query with more
 windows than the fast engines' layout pad is served by the topk engine,
-with one warning per length, as in the JAX package.  ``sharded: true`` is
-served on the one ``device`` by the engine the config names, as the JAX
-package serves it when one device is visible (sharding over several cards
-is ROADMAP item 1.16, multi-GPU).
+with one warning per length, as in the JAX package.
+
+``sharded: true`` with the align or screen engine shards the songs over
+every visible card when more than one is visible
+(``parallel/sharded_search.py``, the JAX package's mesh over all devices);
+on one card it serves unsharded, as the JAX package does on one device.
+``devices=`` names the shard devices instead (the counterpart of the JAX
+mesh; a device may repeat, e.g. ``[cpu] * 8``).  The topk engine is never
+sharded, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from pfann_tpu_torch.index.search import (
     bucket_windows,
     finalize_song_scores,
 )
+from pfann_tpu_torch.parallel.mesh import local_devices
+from pfann_tpu_torch.parallel.sharded_search import ShardedDatabase
 from pfann_tpu_torch.utils.config import read_file_list
 from pfann_tpu_torch.utils.logging import get_logger
 
@@ -60,7 +67,8 @@ def write_index_meta(dir_for_db: str, d: int, meta: dict[str, Any] | None = None
 
 
 class Database:
-    """Loads a DB directory and answers queries on ``device``."""
+    """Loads a DB directory and answers queries on ``device`` (or, sharded,
+    on ``devices``)."""
 
     def __init__(
         self,
@@ -68,6 +76,7 @@ class Database:
         indexer_params: dict[str, Any],
         hop_size: float,
         device: torch.device | str,
+        devices: Sequence[torch.device | str] | None = None,
     ):
         self.dir_for_db = dir_for_db
         self.params = indexer_params
@@ -112,13 +121,11 @@ class Database:
             engine = "screen"
         if engine not in ("align", "screen", "topk"):
             raise ValueError("unknown engine %r (align, screen or topk)" % (engine,))
-        if self.params.get("sharded", False) and engine != "topk":
-            # the JAX package shards only over more than one device
-            # (pfann_tpu/index/database.py:163); its answers are the
-            # unsharded engine's
-            logger.info("sharded: true: serving with the %s engine on %s; sharding "
-                        "over several cards is not ported (ROADMAP 1.16)",
-                        engine, device)
+        if self.params.get("sharded", False) and engine != "topk" and devices is None:
+            # every visible card, where there are several (the JAX package
+            # shards only over more than one device, database.py:163)
+            if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
+                devices = local_devices()
         self.engine = engine
         # align_pad: explicit indexer knob > index_meta (builder's
         # max_query_sec) > engine default
@@ -132,7 +139,21 @@ class Database:
         self._device, self._dtype, self._emb_host = device, dtype, emb
         self._topk = None  # built at first use (the fast engines' fallback)
         self._fallback_logged: set = set()
-        if engine == "topk":
+        self._sharded = None
+        if self.params.get("sharded", False) and engine != "topk" and devices:
+            self._sharded = ShardedDatabase(
+                emb, counts, devices, engine=engine, db_dtype=dtype,
+                align_pad=self.align_pad or DEFAULT_PAD,
+                screen_k=int(self.params.get("screen_pool_k", 4)),
+                screen_top_m=int(self.params.get("screen_top_m", 32)),
+                screen_coarse_dtype=self.params.get("screen_coarse_dtype"),
+                backend=self.params.get("backend", "auto"),
+                score_alpha=self.score_alpha,
+                screen_rescue=float(self.params.get("screen_rescue", 0.4) or 0.0) or None,
+            )
+            logger.info("sharded: the %s engine over %d shards on %s", engine,
+                        len(devices), ", ".join(str(d) for d in devices))
+        elif engine == "topk":
             if self.params.get("backend", "auto") == "approx":
                 logger.info("topk backend 'approx' (approx_max_k, a TPU op): "
                             "this engine takes the exact top-k")
@@ -174,7 +195,7 @@ class Database:
         if self.engine == "topk":
             return False
         sub_len = -(-n_rows // self.frame_shift_mul)
-        max_windows = self._align.max_query_windows()
+        max_windows = self._max_windows()
         if sub_len <= max_windows:
             return True
         if sub_len not in self._fallback_logged:
@@ -187,11 +208,14 @@ class Database:
             )
         return False
 
+    def _max_windows(self) -> int:
+        return self._sharded.pad if self._sharded is not None else self._align.max_query_windows()
+
     def _filters(self, queries):
         """Per-shift filters of every query, zero-padded to one bucketed
         width: (filters [B*fsm, S, d], sub_lens [B*fsm])."""
         fsm = self.frame_shift_mul
-        max_w = self._align.max_query_windows()
+        max_w = self._max_windows()
         filters, sub_lens = [], []
         for q in queries:
             f, sl, _ = queries_to_filters(q, fsm, max_w)
@@ -219,8 +243,14 @@ class Database:
         """(song_max [B, n_songs], song_time_subhop [B, n_songs]) with the
         fsm shifted variants merged (t * fsm - shift time convention)."""
         fsm = self.frame_shift_mul
-        allf, sub_lens = self._filters(queries)
-        score, t = self._align.search(allf, sub_lens)
+        if self._sharded is not None:
+            # per-shift sub-queries at their true lengths (JAX's sharded call)
+            max_w = self._sharded.pad
+            score, t = self._sharded.query_batch(
+                [q[s::fsm][:max_w] for q in queries for s in range(fsm)])
+        else:
+            allf, sub_lens = self._filters(queries)
+            score, t = self._align.search(allf, sub_lens)
         score = score.reshape(len(queries), fsm, -1)
         t = t.reshape(len(queries), fsm, -1)
         t_subhop = t * fsm - np.arange(fsm)[None, :, None]
@@ -268,7 +298,14 @@ class Database:
         B = len(queries)
         scale = self.hop_size / fsm
         allf, lens = self._filters(queries)
-        if self.engine == "screen":
+        if self._sharded is not None:
+            # the sharded top-1 scores sum / S (S the bucketed width; its
+            # rescue gate reads that, as JAX's does); back to mean units
+            val, idx, t = self._sharded.search_top1_rescued(allf)
+            song = self._sharded.flat_to_song(idx)
+            ssum = val * np.float32(allf.shape[1])
+            t = t.astype(np.float32)
+        elif self.engine == "screen":
             # the rescue gate divides the score sums by the true lengths
             song, ssum, t = self._align.search_top1(allf, lens)
         else:

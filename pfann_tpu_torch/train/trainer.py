@@ -15,6 +15,20 @@ The model is the port's FpNetwork with bf16 per layer (as in serving);
 parameters and gradients stay float32.  No AMP GradScaler: bf16 needs no
 loss scaling.  Each step's loss stays on the device; the losses are read
 once per epoch.
+
+Data parallelism (``group``, a ``torch.distributed`` group; the JAX
+package's ``Trainer(mesh=...)``): every rank holds the whole model and its
+contiguous block of each batch's global rows (``parallel.mesh.row_block``).
+The step computes the FULL-batch NT-Xent, as the JAX mesh step does (every
+row keeps all 2n-2 negatives): each rank embeds its block, the blocks are
+gathered detached (written into a zero [n, d] buffer and summed, exact),
+the rank's live block is put back in its place so that the gathered matrix
+carries its gradient path, and the loss of the [n, d] matrix is
+backpropagated.  Each rank's gradient is then dL/dtheta through its own
+rows; their SUM (one all-reduce of the flattened gradients) is dL/dtheta,
+so Adam or LAMB steps identically on every rank.  Rank 0 alone writes the
+checkpoints, ``metrics.jsonl`` and ``model.msgpack`` (the others wait at a
+barrier); every rank loads on resume and validates (the same ranks).
 """
 
 from __future__ import annotations
@@ -28,10 +42,12 @@ from typing import Any, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pfann_tpu_torch.data.prefetch import prefetch
 from pfann_tpu_torch.models.fp_network import build_fp_network, init_like_flax
 from pfann_tpu_torch.ops.specaug import Draws, SpecAugment
+from pfann_tpu_torch.parallel.mesh import row_block
 from pfann_tpu_torch.train.loss import f32_matmul, similarity_loss
 from pfann_tpu_torch.train.schedule import cosine_warm_restarts
 from pfann_tpu_torch.utils import checkpoint as ckpt
@@ -127,9 +143,13 @@ class Trainer:
         params: dict[str, Any],
         compute_dtype: torch.dtype = torch.bfloat16,
         device: torch.device | str = "cuda",
+        group: dist.ProcessGroup | None = None,
     ):
         self.params = params
         self.device = resolve_device(device) if isinstance(device, str) else device
+        self.group = group
+        self.rank = dist.get_rank(group) if group is not None else 0
+        self.world_size = dist.get_world_size(group) if group is not None else 1
         self.model = build_fp_network(params, compute_dtype=compute_dtype).to(self.device)
         self.tau = params.get("tau", 0.05)
         self.total_epoch = params.get("epoch", 100)
@@ -147,19 +167,59 @@ class Trainer:
         optimizer."""
         init_like_flax(self.model, torch.Generator().manual_seed(seed))
         self.optimizer = make_optimizer(self.params, self.model.parameters())
+        self.sync_params()
+
+    def _flat_collective(self, tensors, op) -> None:
+        """``op`` on the tensors flattened into one buffer, then copied back."""
+        tensors = list(tensors)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        op(flat)
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
+
+    @torch.no_grad()
+    def sync_params(self) -> None:
+        """Rank 0's parameters on every rank (a no-op without a group)."""
+        if self.group is not None:
+            self._flat_collective(self.model.parameters(),
+                                  lambda f: dist.broadcast(f, 0, group=self.group))
+
+    @torch.no_grad()
+    def all_reduce_grads(self) -> None:
+        """Each parameter's gradient summed over the ranks, in one call."""
+        self._flat_collective((p.grad for p in self.model.parameters()),
+                              lambda f: dist.all_reduce(f, group=self.group))
+
+    def gather_rows(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's live embeddings y [r1 - r0, d] -> the global [n, d]
+        (f32): the other ranks' blocks detached, this one's in its place."""
+        r0, r1 = row_block(n, self.rank, self.world_size)
+        y = y.float()
+        buf = y.new_zeros(n, y.shape[1])
+        buf[r0:r1] = y.detach()
+        dist.all_reduce(buf, group=self.group)  # one nonzero block a row: exact
+        return torch.cat([buf[:r0], y, buf[r1:]])
 
     def set_lr(self, epoch: int) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_fn(epoch)
 
-    def train_step(self, x: torch.Tensor, draws: Draws) -> torch.Tensor:
+    def train_step(self, x: torch.Tensor, draws: Draws, n: int | None = None
+                   ) -> torch.Tensor:
         """One step on x [n, F, T] (interleaved (org, aug) rows, log-mel, on
-        the model's device) with the SpecAugment mask of ``draws``.  Returns
-        the loss as a device scalar; the gradients stay in ``.grad``."""
+        the model's device) with the SpecAugment mask of ``draws``.  With a
+        group, x is this rank's block of the batch's n global rows.  Returns
+        the loss as a device scalar; the gradients stay in ``.grad`` (with a
+        group, summed over the ranks)."""
         x = self.specaug.augment(draws, x)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = similarity_loss(self.model(x), self.tau)
+        y = self.model(x)
+        if self.group is not None:
+            y = self.gather_rows(y, n)
+        loss = similarity_loss(y, self.tau)
         loss.backward()
+        if self.group is not None:
+            self.all_reduce_grads()
         self.optimizer.step()
         return loss.detach()
 
@@ -201,16 +261,25 @@ class Trainer:
         loader.augmented = True
         loader.set_epoch(epoch)
         self.set_lr(epoch)
+        # with a group the loader yields this rank's rows of each global batch
+        loader.part = (self.rank, self.world_size) if self.group is not None else None
         losses = []
         t0 = time.perf_counter()
-        for step, x in enumerate(prefetch(iter(loader))):
-            # the mock loader yields numpy; a blocking copy would first wait
-            # for the card to finish the previous step
-            x = torch.as_tensor(x).to(self.device, non_blocking=True)
-            x = x.reshape((-1,) + x.shape[2:])  # flatten pairs (train.py:80)
-            draws = self.specaug.draw(seeded_generator(seed, epoch, step),
-                                      x.shape[-2], x.shape[-1])
-            losses.append(self.train_step(x, draws))
+        try:
+            for step, x in enumerate(prefetch(iter(loader))):
+                n = None
+                if loader.part is not None:
+                    x, n = x
+                # the mock loader yields numpy; a blocking copy would first
+                # wait for the card to finish the previous step
+                x = torch.as_tensor(x).to(self.device, non_blocking=True)
+                if loader.part is None:
+                    x = x.reshape((-1,) + x.shape[2:])  # flatten pairs (train.py:80)
+                draws = self.specaug.draw(seeded_generator(seed, epoch, step),
+                                          x.shape[-2], x.shape[-1])
+                losses.append(self.train_step(x, draws, n))
+        finally:
+            loader.part = None
         losses = torch.stack(losses).tolist() if losses else []
         seconds = time.perf_counter() - t0
         mean_loss = float(np.mean(losses)) if losses else float("nan")
@@ -282,56 +351,69 @@ class Trainer:
         model_dir = params_cfg["model_dir"]
         os.makedirs(model_dir, exist_ok=True)
         logger = get_logger()
-
-        date_path = os.path.join(model_dir, "date.txt")
-        if os.path.exists(date_path):
-            with open(date_path) as f:
-                date_str = f.read().strip()
-        else:
-            date_str = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
-            with open(date_path, "w") as f:
-                f.write(date_str + "\n")
+        lead = self.rank == 0  # writes and prints; the other ranks wait
 
         self.init_state()
         start_epoch = ckpt.last_epoch(model_dir)
+        self._barrier()  # every rank has read it before rank 0 writes more
         if start_epoch >= 0:
             if start_epoch + 1 >= self.total_epoch:
-                print("This model has finished training!")
+                if lead:
+                    print("This model has finished training!")
                 return None
-            print("Load from epoch %d" % (start_epoch + 1))
+            if lead:
+                print("Load from epoch %d" % (start_epoch + 1))
             state = ckpt.load_checkpoint(model_dir, start_epoch)
             self.model.load_state_dict(state["params"])
             self.load_opt_state(state["opt_state"])
-        elif config_path:
+        elif config_path and lead:
             shutil.copyfile(config_path, os.path.join(model_dir, "configs.json"))
 
-        safe_name = os.path.basename(os.path.normpath(model_dir))
-        writer = MetricsWriter(model_dir, safe_name + "-" + date_str)
+        writer = None
+        if lead:
+            date_path = os.path.join(model_dir, "date.txt")
+            if os.path.exists(date_path):
+                with open(date_path) as f:
+                    date_str = f.read().strip()
+            else:
+                date_str = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+                with open(date_path, "w") as f:
+                    f.write(date_str + "\n")
+            safe_name = os.path.basename(os.path.normpath(model_dir))
+            writer = MetricsWriter(model_dir, safe_name + "-" + date_str)
         try:
             for epoch in range(start_epoch + 1, self.total_epoch):
-                print("epoch %d" % (epoch + 1))
+                if lead:
+                    print("epoch %d" % (epoch + 1))
                 mean_loss = self.train_epoch(train_loader, epoch)
-                writer.add_scalar("train/loss", mean_loss, epoch)
-                for k, val in self.last_epoch_stats.items():
-                    writer.add_scalar("train/" + k, val, epoch)
-                print("loss: %f" % mean_loss)
-
                 metrics = self.validate(train_loader, val_loader)
-                print("validate score: %f" % metrics["accuracy"])
-                print("validate top10: %f" % metrics["top10"])
-                writer.add_scalar("validation/accuracy", metrics["accuracy"], epoch)
-                writer.add_scalar("validation/top10", metrics["top10"], epoch)
-                writer.add_scalar("validation/top20", metrics["top20"], epoch)
-                writer.add_scalar("validation/top100", metrics["top100"], epoch)
-                writer.flush()
-
-                ckpt.save_checkpoint(model_dir, epoch, {
-                    "epoch": epoch, "params": self.model.state_dict(),
-                    "opt_state": self.opt_state()})
+                if lead:
+                    writer.add_scalar("train/loss", mean_loss, epoch)
+                    for k, val in self.last_epoch_stats.items():
+                        writer.add_scalar("train/" + k, val, epoch)
+                    print("loss: %f" % mean_loss)
+                    print("validate score: %f" % metrics["accuracy"])
+                    print("validate top10: %f" % metrics["top10"])
+                    writer.add_scalar("validation/accuracy", metrics["accuracy"], epoch)
+                    writer.add_scalar("validation/top10", metrics["top10"], epoch)
+                    writer.add_scalar("validation/top20", metrics["top20"], epoch)
+                    writer.add_scalar("validation/top100", metrics["top100"], epoch)
+                    writer.flush()
+                    ckpt.save_checkpoint(model_dir, epoch, {
+                        "epoch": epoch, "params": self.model.state_dict(),
+                        "opt_state": self.opt_state()})
+                self._barrier()
                 logger.info("epoch %d done", epoch + 1)
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
 
         state_dict = self.model.state_dict()
-        ckpt.save_model(os.path.join(model_dir, ckpt.MODEL_FILE_NAME), state_dict)
+        if lead:
+            ckpt.save_model(os.path.join(model_dir, ckpt.MODEL_FILE_NAME), state_dict)
+        self._barrier()
         return state_dict
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)

@@ -79,7 +79,10 @@ def test_port_modules_import_without_pfann_tpu_or_jax():
                      "pfann_tpu_torch.preview", "pfann_tpu_torch.utils.rng",
                      "pfann_tpu_torch.tools.export_model",
                      "pfann_tpu_torch.tools.cosinedecay",
-                     "pfann_tpu_torch.tools.synthetic_demo"):
+                     "pfann_tpu_torch.tools.synthetic_demo",
+                     "pfann_tpu_torch.parallel", "pfann_tpu_torch.parallel.mesh",
+                     "pfann_tpu_torch.parallel.sharded_search",
+                     "pfann_tpu_torch.utils.profiling"):
         assert expected in names
 
 
