@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits nonzero:
 
   1. the card: nvidia-smi name and power limit, torch and CUDA versions.
      No CUDA, no run.
-  2. build the align-reduce kernel from pfann_tpu_torch/csrc/ with nvcc;
-     print ptxas's registers, shared memory and spills per instantiation
-     (an f32 one that spills fails), and count the tensor-core
-     instructions (HMMA / IMMA, or HGMMA / IGMMA) and FFMA in the SASS of
-     each: a bf16 or int8 instantiation without tensor-core instructions,
-     or an f32 one with them or without FFMA, fails.
+  2. build the align-reduce kernel from pfann_tpu_torch/csrc/ with nvcc
+     (its four parts in parallel); print ptxas's registers, shared memory
+     and spills per instantiation (one that spills fails, and so does one
+     whose wgmma ptxas serialised), and count the tensor-core instructions
+     (HMMA / IMMA, HGMMA / IGMMA) and FFMA in the SASS of each: a bf16
+     instantiation without HGMMA, an int8 one without IGMMA, any with
+     HMMA or IMMA (mma.sync), or an f32 one with tensor-core instructions
+     or without FFMA, fails.
   3. kernel against its plain PyTorch version on the card: bf16 and f32;
      pad 32 with S in {19, 24, 32} and pad 128 with S = 119; B in
      {1, 100, 1024}; ~1k songs of 40-120 rows at d = 128.  Then the int8
@@ -308,21 +310,21 @@ def fmt_bound(b):
     return "bound %.3f ms (%s)" % b
 
 
-# align_reduce_mma<mma::Core<Op, RS, WARPS_M, WARPS_N, MT, NT>> and
+# align_reduce_wgmma<Op, NWG, BPS, RS, MT, TN, PP> and
 # align_reduce_f32<f32k::Core<WARPS_M, WARPS_N, RM, RN>>, as mangled
 _KERNEL_NAME = re.compile(
-    r"align_reduce_mma.*?(Bf16Op|Int8Op)ELb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+    r"align_reduce_wgmma.*?(Bf16Op|Int8Op)ELi(\d+)ELi(\d+)ELb([01])ELi(\d+)ELi(\d+)ELb([01])E")
 _F32_KERNEL_NAME = re.compile(r"align_reduce_f32.*?CoreILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
 
 
 def kernel_label(mangled):
     """A short name for a kernel instantiation of csrc/align_reduce.cu."""
     m = _KERNEL_NAME.search(mangled)
-    if m:
-        op, rs, wm, wn, mt, nt = m.groups()
-        return "%s TM=%d TN=%d%s" % ({"Bf16Op": "bf16", "Int8Op": "int8"}[op],
-                                     int(wm) * int(mt) * 16, int(wn) * int(nt) * 8,
-                                     " rowsum" if rs == "1" else "")
+    if m:  # NWG consumer warpgroups of MT m64 tiles, BPS blocks an SM
+        op, nwg, bps, rs, mt, tn, pp = m.groups()
+        return "%s TM=%d TN=%d%s%s x%s" % (
+            {"Bf16Op": "bf16", "Int8Op": "int8"}[op], 64 * int(mt) * int(nwg), int(tn),
+            " rowsum" if rs == "1" else "", " pp" if pp == "1" else "", bps)
     m = _F32_KERNEL_NAME.search(mangled)
     if m:  # warps (M x N) of 8 x 4 lanes, each RM rows x RN queries
         wm, wn, rm, rn = (int(x) for x in m.groups())
@@ -331,15 +333,20 @@ def kernel_label(mangled):
 
 
 def ptxas_report(log):
-    """[(instantiation, its ptxas 'Used ...' line and any spill line)]."""
-    out, name = [], None
+    """[(instantiation, its ptxas 'Used ...' line and any spill line)], and
+    the instantiations whose wgmma ptxas serialised (advisory C7518 and
+    the like: the products would not overlap)."""
+    out, serial, name = [], set(), None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = kernel_label(m.group(1))
+        elif re.search(r"C75(08|09|10|18)\b", line):
+            m = re.search(r"function '(\S+)'", line)
+            serial.add(kernel_label(m.group(1)) if m else line.strip())
         elif name and ("Used" in line or "spill" in line):
             out.append((name, line.split(":", 1)[-1].strip()))
-    return out
+    return out, sorted(serial)
 
 
 def sass_counts(lib_path):
@@ -1867,24 +1874,29 @@ def main() -> None:
         for fut in native_builds:
             print("built %s (g++) by %.2f s  %s" % (os.path.relpath(fut.result(), REPO),
                                                      time.time() - tm, card))
-    report = ptxas_report(align_kernel.build_info.get("log", ""))
+    report, serial = ptxas_report(align_kernel.build_info.get("log", ""))
     for name, line in report:
-        print("  ptxas %-18s %s" % (name, line))
-    # the f32 instantiations keep their tiles in registers: no spills
-    spills = [(n, ln) for n, ln in report if n.startswith("f32") and re.search(
-        r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        print("  ptxas %-28s %s" % (name, line))
+    # every instantiation keeps its tiles in registers: no spills (a spilled
+    # wgmma accumulator is also a hazard, the product writing it being
+    # asynchronous), and ptxas leaves the wgmma groups in flight
+    spills = [(n, ln) for n, ln in report if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
     if spills:
-        raise AssertionError("f32 instantiations spill: %s" % spills)
+        raise AssertionError("instantiations spill: %s" % spills)
+    if serial:
+        raise AssertionError("ptxas serialised the wgmma of %s" % serial)
     sass = sass_counts(lib)
     if sass is None:
         print("  no cuobjdump in this toolkit: SASS not counted")
     else:
         for name, c in sorted(sass.items()):
             print("  SASS %-18s %s" % (name, dict(c)))
-        for tag, ops in (("bf16", ("HMMA", "HGMMA")), ("int8", ("IMMA", "IGMMA"))):
+        # bf16 on HGMMA and int8 on IGMMA (wgmma), none on mma.sync
+        for tag, op in (("bf16", "HGMMA"), ("int8", "IGMMA")):
             inst = {n: c for n, c in sass.items() if n.startswith(tag)}
-            if not inst or any(sum(c[op] for op in ops) == 0 for c in inst.values()):
-                raise AssertionError("%s instantiations without %s: %s" % (tag, ops, inst))
+            if not inst or any(c[op] == 0 or c["HMMA"] or c["IMMA"] for c in inst.values()):
+                raise AssertionError("%s instantiations without %s or with HMMA/IMMA: %s"
+                                     % (tag, op, inst))
         # f32 is FFMA on the CUDA cores, never the tensor cores (TF32)
         inst = {n: c for n, c in sass.items() if n.startswith("f32")}
         if not inst or any(c["FFMA"] == 0 or sum(c[op] for op in ("HMMA", "HGMMA"))

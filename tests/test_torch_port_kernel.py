@@ -26,19 +26,24 @@ import torch
 from pfann_tpu_torch.index import align_kernel
 from pfann_tpu_torch.index.align import build_uniform_layout
 from pfann_tpu_torch.index.align_kernel import (
+    BOX_MAX,
     CHAIN_MAX_SD,
     F32_TILE,
     INT8_MAX_SD,
-    QUERY_STAGES,
+    QUERY_RING,
     QUERY_TILES,
     SMEM_LIMIT,
     TILE_CONFIGS,
+    WGMMA_BUILT,
     align_reduce,
     align_reduce_reference,
     copy_bytes,
+    padded_width,
+    reduce_per_song,
     row_stride,
     smem_bytes,
     tile_plan,
+    wgmma_smem_bytes,
 )
 
 BEST_ATOL = 2e-3
@@ -181,46 +186,77 @@ def _pr2_smem(d, S, itemsize):
     return max((64 + S - 1 + 64) * ((du + 3) // 4 * 4 + 4) * 4, 16 * 64 * 8)
 
 
+def _smem_limit(plan):
+    """Shared memory a block of the plan may take: all a block may use at
+    one block an SM, half the SM less its 1 KB at two."""
+    return min(SMEM_LIMIT, align_kernel.SM_SMEM // plan["bps"] - 1024)
+
+
 @pytest.mark.parametrize("itemsize", [2, 1])
 @pytest.mark.parametrize("d", [4, 12, 128])
 @pytest.mark.parametrize("S", [1, 5, 19, 32, 119])
 @pytest.mark.parametrize("B", [1, 7, 32, 100, 1024])
 def test_tile_plan(B, S, d, itemsize):
-    """The plan fits shared memory, its grid covers every (song, query)
-    exactly once, and its query tile is the smallest that holds B."""
+    """The wgmma plan: its query tile is the smallest of the dtype's tiles
+    that holds B, row sums past S*d = CHAIN_MAX_SD, an instantiation of
+    TILE_CONFIGS with its subtile rows and threads, a ring of A stages and
+    query stages (the tile resident only where the ring holds its S rows),
+    TMA boxes of at most 256 rows covering an A stage, shared memory as
+    the source counts it and within the block's share, a persistent grid
+    of at most one block an item and SMS * bps blocks, and work items that
+    cover every (song, query) exactly once."""
     R, n_songs = S + 41, 1009  # R not a multiple of any TM, n_songs prime
     plan = tile_plan(B, S, d, itemsize, R, n_songs)
-    tn, G = plan["tn"], plan["G"]
-    assert plan["smem"] <= SMEM_LIMIT
-    assert tn == min(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
+    tn, G, sc = plan["tn"], plan["G"], plan["sc"]
+    configs = TILE_CONFIGS[(itemsize, itemsize == 2 and S * d > CHAIN_MAX_SD)]
+    tiles = sorted({t for *_, ts in configs for t in ts})
+    assert tn == min(t for t in tiles if t >= min(B, tiles[-1]))
     assert plan["rowsum"] == (itemsize == 2 and S * d > CHAIN_MAX_SD)
-    assert (plan["tm"], plan["threads"]) == TILE_CONFIGS[tn]
-    assert 1 <= plan["sc"] <= S and plan["abuf"] in (1, 2)
+    cfg = (plan["rowsum"], plan["nwg"], plan["mt"], plan["pp"], plan["bps"])
+    assert any(c[:5] == cfg and tn in c[5] for c in configs)
+    assert (itemsize, *cfg, tn) in WGMMA_BUILT
+    assert plan["tm"] == 64 * plan["mt"] * plan["nwg"]
+    assert plan["threads"] == 128 * (plan["nwg"] + 1)
+    assert 1 <= sc <= S and plan["abuf"] in (1, 2)
     assert plan["sc"] == S or plan["abuf"] == 1  # window-row chunks restage A
-    lds = -(-d * itemsize // 32) * 32 + 16
-    assert plan["smem"] == (plan["abuf"] * (plan["tm"] + plan["sc"] - 1) * lds
-                            + QUERY_STAGES * tn * lds + G * tn * 8)
-    seen = np.zeros((B, n_songs), np.int32)
+    assert plan["qs"] == S if plan["resident"] else plan["qs"] in (2, QUERY_RING)
+    assert plan["box_rows"] <= BOX_MAX and plan["box_rows"] % 8 == 0
+    assert plan["n_box"] * plan["box_rows"] >= plan["tm"] + sc - 1
+    assert (plan["n_box"] - 1) * plan["box_rows"] < plan["tm"] + sc - 1
+    assert plan["smem"] == wgmma_smem_bytes(d, itemsize, plan["tm"], tn, G, sc, plan["abuf"],
+                                            plan["qs"])
+    assert plan["smem"] <= _smem_limit(plan)
     gx, gy = plan["grid"]
+    assert plan["blocks"] == min(gx * gy, align_kernel.SMS * plan["bps"])
+    seen = np.zeros((B, n_songs), np.int32)
     for x, y in itertools.product(range(gx), range(gy)):
         seen[y * tn : (y + 1) * tn, x * G : (x + 1) * G] += 1
     assert (seen == 1).all()
 
 
 def test_tile_plan_groups_songs():
-    """At the serving shapes a block owns several songs, and the rows it
-    rounds up to whole subtiles are few."""
+    """At the serving shapes a work item owns several songs, and the rows
+    it rounds up to whole subtiles are few; bf16 at 1,024 and 256 queries
+    takes 128-query tiles streaming through a ring of QUERY_RING, int8
+    stage 1 keeps its 64-query tile resident at three blocks an SM."""
     for B, S, itemsize, R, n_songs in ((1024, 19, 2, 152, 10_000), (32, 19, 2, 152, 10_000),
-                                       (1024, 5, 1, 40, 100_000)):
+                                       (256, 19, 2, 160, 100_000), (1024, 5, 1, 40, 100_000)):
         plan = tile_plan(B, S, 128, itemsize, R, n_songs)
         rows = plan["G"] * R
         waste = (-(-rows // plan["tm"]) * plan["tm"] - rows) / rows
         assert plan["G"] > 1 and waste < 0.05, plan
-        assert plan["smem"] + 1024 <= align_kernel.SM_SMEM // 2  # two blocks per SM
-    # int8 stage 1 keeps two A stages at two blocks per SM; bf16 at 64
-    # queries gives up its second A stage for the second block
-    assert tile_plan(1024, 5, 128, 1, 40, 100_000)["abuf"] == 2
-    assert tile_plan(1024, 19, 128, 2, 152, 10_000)["abuf"] == 1
+        assert plan["abuf"] == 2 and plan["sc"] == S
+    for B, R, n_songs in ((1024, 152, 10_000), (256, 160, 100_000)):
+        plan = tile_plan(B, 19, 128, 2, R, n_songs)
+        assert (plan["tn"], plan["tm"], plan["qs"], plan["resident"]) == (128, 128, QUERY_RING,
+                                                                           False)
+    plan = tile_plan(32, 19, 128, 2, 152, 10_000)
+    assert (plan["tn"], plan["tm"]) == (32, 256)  # 256 rows a staged query row
+    plan = tile_plan(1024, 5, 128, 1, 40, 100_000)
+    assert (plan["tn"], plan["tm"], plan["bps"], plan["resident"], plan["qs"]) == (
+        64, 64, 3, True, 5)
+    assert 3 * (plan["smem"] + 1024) <= align_kernel.SM_SMEM
+    assert plan["blocks"] == 3 * align_kernel.SMS
 
 
 def test_tile_plan_takes_every_pr2_shape():
@@ -233,7 +269,81 @@ def test_tile_plan_takes_every_pr2_shape():
                     continue
                 if _pr2_smem(d, S, itemsize) <= SMEM_LIMIT or d <= 256:
                     plan = tile_plan(7, S, d, itemsize, 150, 50)
-                    assert plan["smem"] <= SMEM_LIMIT
+                    assert plan["smem"] <= _smem_limit(plan)
+
+
+@pytest.mark.parametrize("itemsize", [2, 1])
+@pytest.mark.parametrize("d", [4, 8, 12, 16, 20, 124, 128])
+def test_tma_padding(d, itemsize):
+    """TMA reads rows of a multiple of 16 bytes from 16-byte aligned bases:
+    d is padded with zero columns to the least such width, which leaves
+    every sum unchanged; aligned rows and bases are passed as they are,
+    and a view off 16-byte alignment becomes an aligned copy."""
+    dp = padded_width(d, itemsize)
+    assert dp * itemsize % 16 == 0 and d <= dp < d + 16 // itemsize
+    assert (dp == d) == (d * itemsize % 16 == 0)
+    rng = np.random.default_rng(d)
+    dtype = torch.int8 if itemsize == 1 else torch.bfloat16
+    db = torch.from_numpy(rng.integers(-9, 10, (50, d)).astype(np.float32)).to(dtype)
+    q = torch.from_numpy(rng.integers(-9, 10, (3, 4, d)).astype(np.float32)).to(dtype)
+    pdb, pq = align_kernel._tma_aligned(db, q)
+    assert pdb.shape == (50, dp) and pq.shape == (3, 4, dp)
+    assert torch.equal(pdb[:, :d], db) and not pdb[:, d:].any() and not pq[..., d:].any()
+    if dp == d:
+        assert pdb.data_ptr() == db.data_ptr() and pq.data_ptr() == q.data_ptr()
+    for got, want in zip(align_reduce(pdb, pq, 10, 4, 5), align_reduce(db, q, 10, 4, 5)):
+        assert torch.equal(got, want)
+    if dp == d:  # a view 4 bytes into its storage: off 16-byte alignment
+        flat = torch.zeros(50 * d + 4 // itemsize, dtype=dtype)
+        view = flat[4 // itemsize:].view(50, d)
+        if view.data_ptr() % 16:
+            moved, _ = align_kernel._tma_aligned(view, q)
+            assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+
+
+def _order_key(x):
+    """The kernel's order-preserving 32-bit key of an f32 sum (float_order
+    in the source): -0.0 ranks as +0.0."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = np.where((u << 1) & 0xFFFFFFFF == 0, 0, u)
+    return np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_epilogue_merge_rule(seed, ties):
+    """The per-song tables of the kernel's epilogue: each warp's slice of
+    each subtile folds into (value, offset) tables by two passes (the max
+    key, then the largest offset reaching it), slices in any order within
+    a subtile and subtiles in order, as the kernel's barriers allow.  "The
+    larger value, then the larger offset" is commutative and associative,
+    so any order gives reduce_per_song's answer, with ties (and -0.0
+    against +0.0) to the later offset."""
+    rng = np.random.default_rng(seed)
+    n_songs, R, n = 7, 40, 5
+    if ties:  # few distinct values: many exact ties, zeros of both signs
+        align = rng.choice(np.float32([-0.0, 0.0, 1.0, -2.5, 3.0]), (n_songs * R, n))
+    else:
+        align = rng.standard_normal((n_songs * R, n)).astype(np.float32)
+    want_best, want_off = reduce_per_song(torch.from_numpy(align), n_songs, R)
+    tm, wm = 64, 16  # rows a subtile, rows a warp slice
+    vals = np.zeros((n_songs, n), np.uint64)
+    offs = np.zeros((n_songs, n), np.int64)
+    song, off = np.arange(n_songs * R) // R, np.arange(n_songs * R) % R
+    keys = _order_key(align)
+    for t0 in range(0, n_songs * R, tm):
+        slices = [np.arange(w, min(w + wm, n_songs * R)) for w in range(t0, t0 + tm, wm)]
+        slices = [s for s in slices if len(s)]
+        for i in rng.permutation(len(slices)):  # pass 1, any order
+            for r in slices[i]:
+                vals[song[r]] = np.maximum(vals[song[r]], keys[r])
+        for i in rng.permutation(len(slices)):  # pass 2, any order
+            for r in slices[i]:
+                hit = keys[r] == vals[song[r]]
+                offs[song[r]] = np.where(hit, np.maximum(offs[song[r]], off[r]),
+                                         offs[song[r]])
+    np.testing.assert_array_equal(_order_key(want_best.T.numpy()), vals)
+    np.testing.assert_array_equal(want_off.T.numpy(), offs)
 
 
 def _covered_once(plan, B, n_songs):
@@ -505,3 +615,79 @@ def test_kernel_zero_regions_on_card(cuda_device, dtype):
                             torch.from_numpy(qs).to(cuda_device, dtype), R, S, n_songs)
     assert (kb[:, 3:6] == 0).all()
     assert (ko[:, 3:6] == R - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pad,S", [(32, 19), (32, 24), (32, 32), (128, 119)])
+@pytest.mark.parametrize("B", [1, 8, 32, 100, 1024])
+def test_wgmma_phase3_shapes_on_card(cuda_device, monkeypatch, dtype, pad, S, B):
+    """The wgmma route at chip_smoke.py phase 3's shapes: pad 32 and 128, S
+    in {19, 24, 32, 119} (bf16; 119 sums each window row apart), int8 at
+    the screened engine's Sc = ceil(S / 4) in {5, 6, 8, 30} (bitwise), with
+    a song count that leaves the last work item's song group and its last
+    subtile ragged (one SM assumed, so that items group several songs)."""
+    monkeypatch.setattr(align_kernel, "SMS", 1)
+    rng = np.random.default_rng(S * B + pad)
+    d, n_songs = 128, 211
+    counts = rng.integers(40, 101 if dtype == torch.int8 else 118, size=n_songs)
+    if dtype == torch.int8:
+        S = -(-S // 4)
+        db, R = build_uniform_layout(
+            rng.integers(-127, 128, size=(int(counts.sum()), d)).astype(np.float32),
+            counts, pad=pad // 4)
+        qs = rng.integers(-127, 128, size=(B, S, d)).astype(np.int8)
+        db = db.astype(np.int8)
+    else:
+        db, R = build_uniform_layout(_corpus(rng, counts, d), counts, pad=pad)
+        qs = (rng.standard_normal((B, S, d)) / np.sqrt(d)).astype(np.float32)
+    plan = tile_plan(B, S, d, torch.empty((), dtype=dtype).element_size(), R, n_songs)
+    assert n_songs % plan["G"] and (plan["G"] * R) % plan["tm"]
+    _hold_to_plain(torch.from_numpy(db).to(cuda_device, dtype),
+                   torch.from_numpy(qs).to(cuda_device, dtype), R, S, n_songs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", sorted(WGMMA_BUILT))
+def test_wgmma_instantiations_on_card(cuda_device, monkeypatch, key):
+    """Every instantiation the source builds (the plans' and the sweep's)
+    against the plain version, at B = 3 TN / 2 (a ragged query tile),
+    stage 1's R = 40 for int8 (rows of a warp straddle songs) and R = 152
+    for bf16; d past 1,536 for the int8 form of one block an SM and one
+    warpgroup."""
+    itemsize, rowsum, nwg, mt, pp, bps, tn = key
+    dtype = torch.int8 if itemsize == 1 else torch.bfloat16
+    d = 1600 if (nwg, bps) == (1, 1) else 128
+    S = 40 if rowsum else 5 if itemsize == 1 else 19
+    R, B, n_songs = (40 if itemsize == 1 else 152) + S, max(1, 3 * tn // 2), 97
+    rng = np.random.default_rng(tn)
+    if dtype == torch.int8:
+        db = rng.integers(-127, 128, size=(n_songs * R, d)).astype(np.int8)
+        qs = rng.integers(-127, 128, size=(B, S, d)).astype(np.int8)
+    else:
+        db = _corpus(rng, np.full(n_songs, R), d)
+        qs = (rng.standard_normal((B, S, d)) / np.sqrt(d)).astype(np.float32)
+    base = align_kernel.wgmma_plan
+    monkeypatch.setattr(align_kernel, "tile_plan", lambda *a: base(
+        *a, config=(rowsum, nwg, mt, pp, bps), tn=tn))
+    plan = align_kernel.tile_plan(B, S, d, itemsize, R, n_songs)
+    assert (plan["tn"], plan["mt"], plan["pp"], plan["bps"]) == (tn, mt, pp, bps)
+    _hold_to_plain(torch.from_numpy(db).to(cuda_device, dtype),
+                   torch.from_numpy(qs).to(cuda_device, dtype), R, S, n_songs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d,offset", [(12, 0), (20, 0), (128, 4), (36, 4)])
+def test_wgmma_padding_on_card(cuda_device, dtype, d, offset):
+    """Rows off 16 bytes (odd d) and views off 16-byte alignment go
+    through the zero-padded or re-based copy; the result equals the plain
+    version on the tensors as given."""
+    rng = np.random.default_rng(d + offset)
+    db, qs, R = _card_case(rng, dtype, 33, 19 if dtype == torch.bfloat16 else 5, d, 29)
+    item = torch.empty((), dtype=dtype).element_size()
+    flat = torch.zeros(db.size + offset // item, dtype=dtype, device=cuda_device)
+    view = flat[offset // item:].view(db.shape)
+    view.copy_(torch.from_numpy(db).to(cuda_device, dtype))
+    assert (view.data_ptr() % 16 == 0) == (offset == 0)
+    _hold_to_plain(view, torch.from_numpy(qs).to(cuda_device, dtype), R, qs.shape[1], 29)

@@ -2,6 +2,8 @@
 
     python tools/torch_kernel_sweep.py [--out FILE.json] [--reps N]
                                        [--only SUBSTRING[,SUBSTRING...]]
+                                       [--shapes SUBSTRING[,...]]
+                                       [--root DIR] [--compare DIR]
 
 A development tool of pfann_tpu_torch, kept outside the package: it swaps
 ``align_kernel.tile_plan`` for a plan with some fields overridden while it
@@ -10,22 +12,30 @@ times a variant, and restores it after.
 Shapes: the exhaustive engine of chip_smoke.py phase 4 (10,000 songs,
 R = 152, bf16, d = 128, S = 19, B = 1024 and 32), the screened engine's
 stage 1 of phase 6 (100,000 songs, Rc = 40, int8, Sc = 5, B = 1024) and
-its stage 3 (100,000 songs, R = 160, bf16, S = 19, B = 256); phase 4 and
-stage 1 also at R = 128, where no warp's rows straddle two songs.  In f32
+its stage 3 (100,000 songs, R = 160, bf16, S = 19, B = 256).  In f32
 (``db_dtype: float32``): phase 3's shapes (1,000 songs; R = 152, S = 19,
 B = 1, 100 and 1024; R = 248, S = 119, B = 1024), f1 (phase 4's corpus
 at B = 1024 and 32, S = 24: the Database pads 19-row queries to 24
 windows; also at S = 19), f2 (the f32 stage 1: Rc = 40, Sc = 5,
 B = 1024) and f3 (the f32 stage 3: R = 160, B = 256).
-Variants override the plan's A stages (abuf), songs per block (G) and
-query tile (tn: the plan for a batch of that many queries).  Every
-variant's outputs are held to the default plan's (int8 bitwise, bf16 and
-f32 within 2e-3) before it is timed.  ``--only`` keeps the shapes whose
-name holds one of the comma-separated substrings and times their default
-plan alone, ``tile_plan`` untouched: the quick before/after of two trees.
-Data are random, made on the card from a seed.  Prints one line per
-(shape, variant) with the card's name and power limit, and writes them as
-JSON.
+
+Variants of the bf16/int8 (wgmma) plan override its query tile (tn), its
+query-row ring (qs: 2, 4 or 8 stages streaming; S holds the tile
+resident) and its instantiation (config: rowsum, consumer warpgroups,
+m64 tiles a warpgroup, i.e. rows a warpgroup / 64, and ping-pong
+accumulators, the epilogue overlapping the next subtile's products, or
+not); f32 variants its query tile and songs per block.  Every variant's
+outputs are held to the default plan's (int8 bitwise, bf16 and f32 within
+2e-3) before it is timed.  ``--only`` keeps the shapes whose name holds
+one of the comma-separated substrings and times their default plan alone;
+``--shapes`` keeps them with every variant.
+``--root DIR`` times the package of another tree (unpacked from git into
+a directory that .gitignore lists), whatever its tile plan.  ``--compare
+DIR`` is the before/after of two trees in one call: the default plans of
+phase 4 (B = 1024 and 32), stage 1 and stage 3 from DIR, from this tree,
+from this tree and from DIR again, each in a process of its own.  Data
+are random, made on the card from a seed.  Prints one line per (shape,
+variant) with the card's name and power limit, and writes them as JSON.
 """
 
 from __future__ import annotations
@@ -36,38 +46,50 @@ import os
 import subprocess
 import sys
 
-import torch
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMPARED = "phase4 bf16 B=1024,phase4 bf16 B=32,stage1 int8,stage3 bf16"
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pfann_tpu_torch.index import align_kernel  # noqa: E402
-from pfann_tpu_torch.index.align_kernel import align_reduce  # noqa: E402
+def _import(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch  # noqa: F401
+
+    import pfann_tpu_torch.index.align_kernel as align_kernel
+
+    if not align_kernel.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit("kernel_sweep: imported %s, not from %s" % (align_kernel.__file__, root))
+    return align_kernel
+
 
 SHAPES = [  # name, dtype, n_songs, R, S, B
-    ("phase4 bf16 B=1024", torch.bfloat16, 10_000, 152, 19, 1024),
-    ("phase4 bf16 B=1024 R=128", torch.bfloat16, 10_000, 128, 19, 1024),
-    ("phase4 bf16 B=32", torch.bfloat16, 10_000, 152, 19, 32),
-    ("stage3 bf16 B=256", torch.bfloat16, 100_000, 160, 19, 256),
-    ("stage1 int8 B=1024", torch.int8, 100_000, 40, 5, 1024),
-    ("stage1 int8 B=1024 R=128", torch.int8, 31_250, 128, 5, 1024),
-    ("phase3 f32 B=1", torch.float32, 1_000, 152, 19, 1),
-    ("phase3 f32 B=100", torch.float32, 1_000, 152, 19, 100),
-    ("phase3 f32 B=1024", torch.float32, 1_000, 152, 19, 1024),
-    ("phase3 f32 S=119 B=1024", torch.float32, 1_000, 248, 119, 1024),
-    ("f1 f32 B=1024", torch.float32, 10_000, 152, 24, 1024),
-    ("f1 f32 B=32", torch.float32, 10_000, 152, 24, 32),
-    ("f1 f32 B=1024 S=19", torch.float32, 10_000, 152, 19, 1024),
-    ("f2 f32 stage1 B=1024", torch.float32, 100_000, 40, 5, 1024),
-    ("f3 f32 stage3 B=256", torch.float32, 100_000, 160, 19, 256),
+    ("phase4 bf16 B=1024", "bfloat16", 10_000, 152, 19, 1024),
+    ("phase4 bf16 B=32", "bfloat16", 10_000, 152, 19, 32),
+    ("stage3 bf16 B=256", "bfloat16", 100_000, 160, 19, 256),
+    ("stage1 int8 B=1024", "int8", 100_000, 40, 5, 1024),
+    ("phase3 f32 B=1", "float32", 1_000, 152, 19, 1),
+    ("phase3 f32 B=100", "float32", 1_000, 152, 19, 100),
+    ("phase3 f32 B=1024", "float32", 1_000, 152, 19, 1024),
+    ("phase3 f32 S=119 B=1024", "float32", 1_000, 248, 119, 1024),
+    ("f1 f32 B=1024", "float32", 10_000, 152, 24, 1024),
+    ("f1 f32 B=32", "float32", 10_000, 152, 24, 32),
+    ("f1 f32 B=1024 S=19", "float32", 10_000, 152, 19, 1024),
+    ("f2 f32 stage1 B=1024", "float32", 100_000, 40, 5, 1024),
+    ("f3 f32 stage3 B=256", "float32", 100_000, 160, 19, 256),
 ]
-# {"G": 1} goes last: the variant timed right after it read up to 15%
-# slow even where its plan equals the default one
-VARIANTS = [{}, {"abuf": 2}, {"abuf": 1}, {"tn": 32}, {"G": 1}]
+# bf16/int8: overrides of wgmma_plan (config = (rowsum, NWG, MT, ping-pong,
+# blocks per SM))
+VARIANTS = {
+    "bfloat16": [{}, {"qs": 2}, {"tn": 64}, {"config": (False, 2, 1, True, 1), "tn": 64},
+                 {"config": (True, 2, 1, False, 1)}],
+    "int8": [{}, {"tn": 32}, {"qs": 4}, {"config": (False, 2, 1, True, 1)},
+             {"config": (False, 2, 1, False, 1), "tn": 128},
+             {"config": (False, 1, 1, False, 2), "tn": 64}],
+}
 # f32 at d = 128 never fits two A stages in its 256-row subtiles
 F32_VARIANTS = [{}, {"tn": 32}, {"G": 5}, {"G": 2}, {"G": 1}]
 
 
-def _time_ms(fn, reps):
+def _time_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -79,31 +101,38 @@ def _time_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def _with(over):
-    """tile_plan with some fields overridden (shared memory recomputed); a
-    query tile is overridden by the plan for a batch of that many queries."""
-    base = align_kernel.tile_plan
+def _with(ak, over):
+    """tile_plan with some fields overridden; None where it does not fit
+    or the kernel has no such instantiation."""
+    base = ak.tile_plan
 
-    def plan(B, S, d, itemsize, R, n_songs):
+    def f32_plan(B, S, d, itemsize, R, n_songs):
         p = dict(base(min(B, over.get("tn", B)), S, d, itemsize, R, n_songs))
         p.update((k, v) for k, v in over.items() if k != "tn")
-        p["smem"] = align_kernel.smem_bytes(d, itemsize, p["tm"], p["tn"], p["G"], p["sc"],
-                                            p["abuf"])
+        p["smem"] = ak.smem_bytes(d, itemsize, p["tm"], p["tn"], p["G"], p["sc"], p["abuf"])
         p["grid"] = (-(-n_songs // p["G"]), -(-B // p["tn"]))
-        return p if p["smem"] <= align_kernel.SMEM_LIMIT else None
+        return p if p["smem"] <= ak.SMEM_LIMIT else None
 
-    return plan
+    def wgmma_plan(B, S, d, itemsize, R, n_songs):
+        qs = over.get("qs")
+        try:
+            p = ak.wgmma_plan(B, S, d, itemsize, R, n_songs, config=over.get("config"),
+                              tn=over.get("tn"), qs=S if qs == "S" else qs)
+        except ValueError:
+            return None
+        key = (itemsize, p["rowsum"], p["nwg"], p["mt"], p["pp"], p["bps"], p["tn"])
+        return p if key in ak.WGMMA_BUILT else None
+
+    return lambda B, S, d, itemsize, *a: (
+        f32_plan if itemsize == 4 else wgmma_plan)(B, S, d, itemsize, *a)
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--only", default="",
-                    help="comma-separated substrings: time the default plan of the "
-                         "shapes whose name holds one")
-    args = ap.parse_args(argv)
+def run(args) -> list:
+    ak = _import(args.root)
+    import torch
+
     only = [x for x in args.only.split(",") if x]
+    shapes = [x for x in args.shapes.split(",") if x] or only
     if not torch.cuda.is_available():
         raise SystemExit("kernel_sweep: no CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -111,11 +140,12 @@ def main(argv=None) -> None:
                           check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows, base_plan = [], align_kernel.tile_plan
+    rows, base_plan = [], ak.tile_plan
     d = 128
-    for name, dtype, n_songs, R, S, B in SHAPES:
-        if only and not any(x in name for x in only):
+    for name, dt, n_songs, R, S, B in SHAPES:
+        if shapes and not any(x in name for x in shapes):
             continue
+        dtype = getattr(torch, dt)
         N = n_songs * R
         if dtype == torch.int8:
             db = torch.randint(-127, 128, (N, d), generator=gen, device=dev,
@@ -126,36 +156,64 @@ def main(argv=None) -> None:
             db = (torch.randn(N, d, generator=gen, device=dev) / d**0.5).to(dtype)
             q = (torch.randn(B, S, d, generator=gen, device=dev) / d**0.5).to(dtype)
         want = None
-        variants = F32_VARIANTS if dtype == torch.float32 else VARIANTS
+        variants = F32_VARIANTS if dtype == torch.float32 else VARIANTS[dt]
         for over in variants[:1] if only else variants:
             plan = None
             if not only:
-                plan_fn = _with(over)
+                plan_fn = _with(ak, over)
                 plan = plan_fn(B, S, d, db.element_size(), R, n_songs)
                 if plan is None:
                     continue
-                align_kernel.tile_plan = lambda *a, f=plan_fn: f(*a)
+                ak.tile_plan = lambda *a, f=plan_fn: f(*a)
             try:
-                got = align_reduce(db, q, R, S, n_songs)
+                got = ak.align_reduce(db, q, R, S, n_songs)
                 if want is None:
                     want = got
                 elif dtype == torch.int8:
                     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
                 else:
                     assert float((got[0] - want[0]).abs().max()) <= 2e-3
-                ms = _time_ms(lambda: align_reduce(db, q, R, S, n_songs), args.reps)
+                ms = _time_ms(torch, lambda: ak.align_reduce(db, q, R, S, n_songs), args.reps)
             finally:
-                align_kernel.tile_plan = base_plan
-            row = dict(shape=name, variant=over or "plan", ms=ms,
-                       plan=plan and {k: plan[k] for k in ("tn", "tm", "rowsum", "G", "sc",
-                                                           "abuf", "smem")},
+                ak.tile_plan = base_plan
+            shown = plan and {k: v for k, v in plan.items() if k not in ("grid", "threads")}
+            row = dict(shape=name, variant=over or "plan", ms=ms, plan=shown, root=args.root,
                        tops=2.0 * N * d * S * B / ms / 1e9, card=card)
             rows.append(row)
-            print("%-26s %-14s %9.3f ms  %7.1f T(FL)OP/s  %s  [%s]" % (
-                name, json.dumps(over) if over else "plan", ms, row["tops"],
-                row["plan"], card), flush=True)
+            print("%-24s %-34s %9.3f ms  %7.1f T(FL)OP/s  %s  %s  [%s]" % (
+                name, json.dumps(over) if over else "plan", ms, row["tops"], args.root,
+                shown or "", card), flush=True)
         del db, q, want
         torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", default="",
+                    help="comma-separated substrings: time the default plan of the "
+                         "shapes whose name holds one")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated substrings: the shapes to time, every variant")
+    ap.add_argument("--root", default=HERE, help="the tree whose package is timed")
+    ap.add_argument("--compare", default=None,
+                    help="another tree: its default plans against this tree's, "
+                         "other, this, this, other")
+    args = ap.parse_args(argv)
+    if args.compare:
+        rows = []
+        for root in (args.compare, HERE, HERE, args.compare):
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--root", root, "--only",
+                 args.only or COMPARED, "--reps", str(args.reps), "--out", "/dev/stdout"],
+                capture_output=True, text=True, check=True).stdout
+            lines = out.splitlines()
+            print("\n".join(lines[: lines.index("[")] if "[" in lines else lines), flush=True)
+            rows += json.loads("\n".join(lines[lines.index("["):]))
+    else:
+        rows = run(args)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
