@@ -125,8 +125,22 @@ Phases, in order; any failure raises and the script exits nonzero:
      over N devices" and the checkpoint contract's files.  (c)'s ranks
      report their align-reduce launches, which must be 0; (d)'s rank is a
      child of a child, whose counts this script cannot read.
+ 11. the ported bench (pfann_tpu_torch/bench.py, in process, stdout
+     captured): every mode of bench.py through the port's engines, each
+     JSON line printed and held to bench.py's keys for its mode and this
+     card: default with --batch-sweep (10,000 songs; bf16 launches at B =
+     128, 256 and 512 as well as 1,024), --sharded, --scale 100000 (bf16
+     stage 1 at Sc=5 and the noisy rescue), --scale 100000 --int8-exact
+     (int8 only), --long 10000 (bf16 coarse stage at Sc=30), --db on phase
+     7's 10k-song DB directory as written (bf16), with db_dtype float32
+     (f32 only) and with screen: true (int8 stage 1, bf16 control and
+     rescue), --lm 256, --build 256 and --train-epoch on phase 9's
+     synthetic config (no align-reduce launch).  The bf16 launches no
+     earlier phase makes at their scale are held to the plain version and
+     timed: stage 1 at 100k songs, the Sc=30 coarse stage, the sweep's
+     B = 128, 256 and 512.
 
-Phases 3, 4, 6 and 7 (f1) print each kernel's time beside its bound (the
+Phases 3, 4, 6, 7 (f1) and 11 print each kernel's time beside its bound (the
 larger of the operations over the card's published dense peak for their
 type and the bytes over its memory rate, from the shapes), its plain
 version's time and a library yardstick that only this script calls:
@@ -139,8 +153,8 @@ a library route).
 Every kernel shape that is timed is held to the plain version on the
 same inputs; each f32 path prints the f32 form's largest |dbest| on a
 line of its own.  Each path (phase 5's two engines, phase 6's batches,
-phase 7's, 8's, 9's and 10's in-process paths; 10 (c)'s ranks report
-their own counts) is driven with the kernel's launch counts
+phase 7's, 8's, 9's, 10's and 11's in-process paths; 10 (c)'s ranks
+report their own counts) is driven with the kernel's launch counts
 set to 0 just before it and read just after; the kernels line gives each
 form's (bf16, int8, f32) launches per path.  The line before the last is a JSON object
 describing each kernel; the last line is {"ok": true, "device": {...}}.
@@ -171,6 +185,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pfann_tpu_torch import (  # noqa: E402
+    bench as port_bench,
     builder,
     cppmatcher,
     extractemb,
@@ -184,6 +199,7 @@ from pfann_tpu_torch import (  # noqa: E402
 from pfann_tpu_torch.audio.io import get_audio, write_wav  # noqa: E402
 from pfann_tpu_torch.data.musicdata import MusicDataset  # noqa: E402
 from pfann_tpu_torch.data.segments import SegmentedDataLoader  # noqa: E402
+from pfann_tpu_torch.index import align as align_mod  # noqa: E402
 from pfann_tpu_torch.index import align_kernel, native  # noqa: E402
 from pfann_tpu_torch.index.align import (  # noqa: E402
     AlignmentEngine,
@@ -631,20 +647,21 @@ def screen_scenario(dev, card) -> dict:
             "bound": s1_bound, "corpus": (emb, counts), "f32": f32, "answers": answers}
 
 
-def f32_launch(name, db, q, R, S, n_songs, card, conv_reps=1):
-    """The f32 kernel at one main-path shape: held to the plain version on
-    the same tensors (which also times it once), then timed (3 calls),
-    beside F.conv1d + amax with TF32 off and the bound.  Prints the f32
+def held_launch(name, db, q, R, S, n_songs, card, conv_reps=1):
+    """The bf16 or f32 kernel at one main-path shape: held to the plain
+    version on the same tensors (which also times it once), then timed (3
+    calls), beside F.conv1d + amax with TF32 off and the bound.  Prints the
     form's largest |dbest| on a line of its own; returns the numbers."""
+    form = {torch.float32: "f32", torch.bfloat16: "bf16"}[db.dtype]
     err, nbad, _, plain_ms = compare(db, q, R, S, n_songs)
     ms = time_ms(lambda: align_reduce(db, q, R, S, n_songs), 3)
     lib_ms = conv_library_ms(db, q, R, S, n_songs, conv_reps)
-    bnd = bound(torch.float32, db.shape[0], db.shape[1], S, q.shape[0], n_songs, R)
-    print("  f32 kernel, %s (R=%d, S=%d, B=%d, %d songs): %.3f ms, plain %.3f ms, conv1d "
-          "%.3f ms, %s; argoff ties %d  %s" % (name, R, S, q.shape[0], n_songs, ms,
+    bnd = bound(db.dtype, db.shape[0], db.shape[1], S, q.shape[0], n_songs, R)
+    print("  %s kernel, %s (R=%d, S=%d, B=%d, %d songs): %.3f ms, plain %.3f ms, conv1d "
+          "%.3f ms, %s; argoff ties %d  %s" % (form, name, R, S, q.shape[0], n_songs, ms,
                                                plain_ms, lib_ms, fmt_bound(bnd), nbad, card),
           flush=True)
-    print("  f32 max|dbest| %s: %.3e" % (name, err), flush=True)
+    print("  %s max|dbest| %s: %.3e" % (form, name, err), flush=True)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound": bnd}
 
 
@@ -682,8 +699,8 @@ def screen_f32(dev, card, emb, counts, f, src, off, fn):
               hits, B, right, B, n["f32"], batch_ms / 1e3, B / (batch_ms / 1e3), card),
           flush=True)
     qc = collapse_queries(torch.from_numpy(f).to(dev), k)
-    out["f2"] = f32_launch("f2 stage 1", eng._coarse, qc, eng.Rc, qc.shape[1], eng.n_pad,
-                           card)
+    out["f2"] = held_launch("f2 stage 1", eng._coarse, qc, eng.Rc, qc.shape[1], eng.n_pad,
+                            card)
     del qc
 
     reset_launch_counts()
@@ -697,7 +714,7 @@ def screen_f32(dev, card, emb, counts, f, src, off, fn):
     noisy_ms = time_ms(lambda: eng.search_top1(fn), 1)
     db3 = eng._db3.view(-1, d)
     q3 = torch.from_numpy(fn).to(dev)
-    out["f3"] = f32_launch("f3 stage 3", db3, q3, eng.R, S, eng.n_pad, card)
+    out["f3"] = held_launch("f3 stage 3", db3, q3, eng.R, S, eng.n_pad, card)
     del eng, db3, q3
     torch.cuda.empty_cache()
     full = AlignmentEngine(emb, counts, score_dtype=torch.float32, device=dev)
@@ -901,8 +918,8 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
               % (e._db.numel() * 4 / 1e6, B, B, B, B, B, ms_f, card), flush=True)
         filters, _ = db._filters(list(qf[:B]))
         q = torch.from_numpy(filters).to(dev)
-        f32[B] = f32_launch("f1 B=%d" % B, e._db, q, e.R, q.shape[1], e.n_songs, card,
-                            conv_reps=3)
+        f32[B] = held_launch("f1 B=%d" % B, e._db, q, e.R, q.shape[1], e.n_songs, card,
+                             conv_reps=3)
         del q
     del db, e
     torch.cuda.empty_cache()
@@ -1842,6 +1859,178 @@ def multi_gpu_paths(dev, card, tmp, big, p4, p6, synth, dp_rows=(32, 640), dp_re
     return {"bf16": err, "int8": err8}
 
 
+# bench.py's JSON keys by mode (bench.py:186-290, 378-392, 451-520,
+# 599-613, 750-791, 853-861); the port's lines add "device"
+_HEAD = {"metric", "value", "unit", "vs_baseline"}
+_SCREENED = _HEAD | {"mode", "n_songs", "recall_sanity", "rescue_path"}
+_DB = {"metric", "unit", "n_songs", "db", "engine", "value", "vs_baseline", "recall_sanity"}
+BENCH_KEYS = {
+    "default --batch-sweep": _HEAD | {"batch_curve", "train_step_ms"},
+    "--sharded": _HEAD | {"mode", "train_step_ms"},
+    "--scale": _SCREENED | {"bare_top1_qps", "recall_noisy", "rescued_top1_qps_noisy"},
+    "--scale --int8-exact": _SCREENED | {"hbm_bytes_in_use"},
+    "--long": {"metric", "unit", "S", "n_songs", "screen_pad128_qps", "value",
+               "vs_baseline", "topk_qps"},
+    "--db": _DB,
+    "--db screen": _DB | {
+        "align_control_qps", "align_control_recall", "bare_top1_qps",
+        "rescued_top1_qps_clean", "rescued_top1_parity_clean", "rescued_top1_qps_noisy",
+        "rescued_top1_parity_noisy", "rescued_search_qps_clean",
+        "rescued_search_qps_noisy"},
+    "--lm": {"metric", "value", "unit", "host_audio_s_per_sec", "speedup",
+             "hash_agreement", "n_songs"},
+    "--build": {"metric", "value", "unit", "vs_baseline", "embeddings_per_sec", "n_songs",
+                "pipeline_depth", "phase_split_s"},
+    "--train-epoch": {"metric", "value", "unit", "epoch_s", "n_segments", "loss", "host_s",
+                      "dispatch_s", "device_corpus"},
+}
+
+
+@contextlib.contextmanager
+def launch_shapes(keep=None):
+    """Inside the block, note (dtype, R, S, B, n_songs) of every align-reduce
+    launch the engines make (``alignment_core`` calls it through
+    pfann_tpu_torch.index.align) and keep the inputs (db, queries) of the
+    first launch of each shape that ``keep`` selects.  Yields (shapes,
+    kept); the launch counts are the wrapper's own, untouched."""
+    shapes, kept = [], {}
+    real = align_mod.align_reduce
+
+    def noting(db, q, R, S, n_songs):
+        shape = (db.dtype, R, S, q.shape[0], n_songs)
+        shapes.append(shape)
+        if keep is not None and keep(shape) and shape not in kept:
+            kept[shape] = (db, q)
+        return real(db, q, R, S, n_songs)
+
+    align_mod.align_reduce = noting
+    try:
+        yield shapes, kept
+    finally:
+        align_mod.align_reduce = real
+
+
+def ported_bench(dev, card, db10k, train_cfg, n_songs=10_000, scale=100_000,
+                 audio_songs=256, train_rows=1280):
+    """Phase 11: python -m pfann_tpu_torch.bench, every mode of bench.py,
+    in process with stdout captured: default with --batch-sweep,
+    --sharded, --scale 100000 (bf16 stage 1), --scale 100000 --int8-exact,
+    --long 10000, --db on phase 7's 10k-song DB (``db10k``) as written (bf16
+    align), with db_dtype float32 and with screen: true (int8 stage 1),
+    --lm 256, --build 256 and --train-epoch on phase 9's synthetic config
+    (``train_cfg``).  Each mode's JSON line is printed and must carry
+    bench.py's keys and this card; each mode's launches are recorded and
+    must be of the forms its path runs.  The bf16 launches no earlier phase
+    makes at their scale are held to the plain version: stage 1 at 100k
+    songs (Rc=40, Sc=5, B=1024), the long-query coarse stage (Sc=30 over
+    10k songs) and the sweep's B = 128, 256 and 512.  The keywords cut the
+    run for a rehearsal on the CPU (``n_songs`` for default, --sharded and
+    --long; ``scale``; ``audio_songs`` for --lm and --build; the train
+    step's rows).  Returns the largest bf16 |dbest| of those holds."""
+    phase(11, "the ported bench: python -m pfann_tpu_torch.bench, every mode of bench.py")
+    smi = card[1:-1]
+    tm0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    errs = []  # the holds' largest |dbest|
+
+    def drive(label, keys, fn, *args, keep=None, **kw):
+        """One mode: its lines (``BENCH_KEYS[keys]`` and the card checked,
+        printed), the launches by form, and the shapes (and kept inputs) it
+        launched."""
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        reset_launch_counts()
+        tm = time.perf_counter()
+        with launch_shapes(keep) as (shapes, kept), contextlib.redirect_stdout(buf):
+            fn(*args, device=dev, **kw)
+        torch.cuda.synchronize()
+        n = record("11: bench " + label)
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        want = BENCH_KEYS[keys] | {"device"}
+        if not lines or any(set(ln) != want or ln["device"] != smi for ln in lines):
+            raise AssertionError("11 %s: lines %s, want keys %s on %s"
+                                 % (label, lines, sorted(want), smi))
+        for ln in lines:
+            print("  11 %s (%.1f s): %s  %s" % (label, time.perf_counter() - tm,
+                                                json.dumps(ln), card), flush=True)
+        print("  11 %s launches: %s" % (label, n), flush=True)
+        return lines, n, shapes, kept
+
+    def forms(label, n, *on):
+        """The kernel forms ``on`` launched, and no other."""
+        if any((n[f] > 0) != (f in on) for f in n):
+            raise AssertionError("11 %s launched %s, want %s only" % (label, n, on or "none"))
+
+    def hold(name, kept, shape):
+        db, q = kept.pop(shape)
+        _, R, S, _, n_songs = shape
+        errs.append(held_launch(name, db, q, R, S, n_songs, card)["err"])
+
+    # the exhaustive engine: headline and sweep, then one shard
+    sweep = {128, 256, 512}
+    _, n, shapes, kept = drive(
+        "default --batch-sweep", "default --batch-sweep", port_bench.main, batch_sweep=True,
+        n_songs=n_songs, train_rows=train_rows, keep=lambda s: s[0] == bf16 and s[3] in sweep)
+    forms("default --batch-sweep", n, "bf16")
+    if not sweep <= {s[3] for s in shapes if s[0] == bf16}:
+        raise AssertionError("11 sweep launched B %s" % sorted({s[3] for s in shapes}))
+    for shape in sorted(kept, key=lambda s: s[3]):
+        hold("sweep B=%d" % shape[3], kept, shape)
+    _, n, _, _ = drive("--sharded", "--sharded", port_bench.main, sharded=True,
+                       n_songs=n_songs, train_rows=train_rows)
+    forms("--sharded", n, "bf16")
+
+    # the screened engine at 100k songs: bf16 stage 1 (Rc=40, Sc=5), the
+    # rescue at R=160, S=19
+    tag = "--scale %d" % scale
+    _, n, shapes, kept = drive(tag, "--scale", port_bench.main, scale=scale,
+                               keep=lambda s: s[:3] == (bf16, 40, 5) and s[4] == scale)
+    forms(tag, n, "bf16")
+    if len(kept) != 1 or not any(s[:3] == (bf16, 160, 19) for s in shapes):
+        raise AssertionError("11 %s: bf16 stage-1 launches %s, a rescue launch: %s"
+                             % (tag, list(kept), any(s[1] == 160 for s in shapes)))
+    hold(tag + " stage 1", kept, next(iter(kept)))
+    _, n, _, _ = drive(tag + " --int8-exact", "--scale --int8-exact", port_bench.main,
+                       scale=scale, int8_exact=True)
+    forms(tag + " --int8-exact", n, "int8")
+
+    # 60 s queries: the screen's bf16 coarse stage at Sc=30 over 10k songs
+    _, n, _, kept = drive("--long %d" % n_songs, "--long", port_bench.long_query_bench,
+                          n_songs, keep=lambda s: s[0] == bf16 and s[2] == 30)
+    forms("--long", n, "bf16")
+    if len(kept) != 1:
+        raise AssertionError("11 --long: bf16 launches at Sc=30: %s" % list(kept))
+    hold("--long coarse Sc=30", kept, next(iter(kept)))
+
+    # phase 7's DB directory, three ways
+    cfg_path = os.path.join(db10k, "configs.json")
+    for label, extra, on in (("--db", {}, ("bf16",)),
+                             ("--db db_dtype float32", {"db_dtype": "float32"}, ("f32",)),
+                             ("--db screen: true", {"screen": True,
+                                                     "screen_coarse_dtype": "int8"},
+                              ("bf16", "int8"))):
+        with open(cfg_path, "w") as fh:
+            json.dump({"hop_size": 0.5, "indexer": dict(top_k=100, **extra)}, fh)
+        lines, n, _, _ = drive(label + " on db10k", "--db screen" if "screen" in extra
+                               else "--db", port_bench.db_bench, db10k)
+        forms(label, n, *on)
+        if lines[0]["engine"] != ("screen" if "screen" in extra else "align"):
+            raise AssertionError("11 %s served by %s" % (label, lines[0]["engine"]))
+
+    # the rest: no align-reduce launch on their paths
+    _, n, _, _ = drive("--lm %d" % audio_songs, "--lm", port_bench.landmark_bench,
+                       audio_songs)
+    forms("--lm", n)
+    _, n, _, _ = drive("--build %d" % audio_songs, "--build", port_bench.build_bench,
+                       audio_songs)
+    forms("--build", n)
+    _, n, _, _ = drive("--train-epoch", "--train-epoch", port_bench.sustained_train,
+                       train_cfg)
+    forms("--train-epoch", n)
+    print("  11 wall %.1f s  %s" % (time.perf_counter() - tm0, card), flush=True)
+    return max(errs)
+
+
 def main() -> None:
     # ---------------------------------------------------------------- 1
     phase(1, "card")
@@ -2177,11 +2366,13 @@ def main() -> None:
         big, p6 = shot.pop("corpus"), shot.pop("answers")
         f1 = rest_of_serving(dev, card, tmp, emb, big, p5)
         landmark_front_end(dev, card, tmp, p5)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        synth = training_on_card(dev, card, tmp)
-        errs10 = multi_gpu_paths(dev, card, tmp, big, p4, p6, synth)
-    max_err = max(max_err, errs10["bf16"])
-    del big, p4, p6
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp9:
+            synth = training_on_card(dev, card, tmp9)
+            errs10 = multi_gpu_paths(dev, card, tmp9, big, p4, p6, synth)
+            del big, p4, p6  # phase 11 builds its own 100k-song corpora
+            err11 = ported_bench(dev, card, os.path.join(tmp, "db10k"),
+                                 os.path.join(tmp9, "train.json"))
+    max_err = max(max_err, errs10["bf16"], err11)
 
     # every driven path's launches, phases 5-7 (0 where a path runs none)
     launches = sum(p["bf16"] for p in PATHS.values())

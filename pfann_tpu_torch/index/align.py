@@ -168,6 +168,8 @@ class AlignmentEngine:
         self.d = db.shape[1]
         self.score_dtype = score_dtype
         self._db = torch.from_numpy(db).to(device=self.device, dtype=score_dtype)
+        # filters per dispatch (the bench's --batch-sweep lowers it)
+        self.max_batch = MAX_BATCH
         self._row_valid = None
         if self.score_alpha != 0.0:
             self._row_valid = torch.from_numpy(
@@ -177,14 +179,25 @@ class AlignmentEngine:
     def max_query_windows(self) -> int:
         return self.pad  # longer filters would cross into the next region
 
-    def search_device(self, filters: np.ndarray, sub_lens=None) -> list:
-        """Dispatch alignment over MAX_BATCH-row chunks without syncing;
-        returns a list of (best, argoff) device tensors.  sub_lens [B]
-        (optional) masks zero filter rows on the alpha path only."""
+    def _queries(self, chunk) -> torch.Tensor:
+        """A chunk of filters as the kernel takes it: contiguous, in the
+        layout dtype, on the engine's device.  A tensor already there in
+        that dtype is used as it stands; a host array is uploaded."""
+        if not isinstance(chunk, torch.Tensor):
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk, np.float32))
+        return chunk.to(device=self.device, dtype=self.score_dtype).contiguous()
+
+    def search_device(self, filters, sub_lens=None) -> list:
+        """Dispatch alignment over ``max_batch``-row chunks without syncing;
+        returns a list of (best, argoff) device tensors.  ``filters`` is a
+        host array or a tensor (one on the engine's device is not copied).
+        sub_lens [B] (optional) masks zero filter rows on the alpha path
+        only."""
         B, S, _ = filters.shape
+        mb = self.max_batch
         outs = []
-        for i in range(0, B, MAX_BATCH):
-            chunk = filters[i : i + MAX_BATCH]
+        for i in range(0, B, mb):
+            chunk = filters[i : i + mb]
             n = chunk.shape[0]
             q_valid = None
             if self.score_alpha != 0.0:
@@ -193,11 +206,8 @@ class AlignmentEngine:
                 q_valid = torch.from_numpy(
                     (np.arange(S)[:, None] < lens[None, :]).astype(np.float32)
                 ).to(self.device)
-            q = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(
-                device=self.device, dtype=self.score_dtype
-            )
             outs.append(alignment_core(
-                self._db, q, R=self.R, S=S, n_songs=self.n_songs,
+                self._db, self._queries(chunk), R=self.R, S=S, n_songs=self.n_songs,
                 score_alpha=self.score_alpha, row_valid=self._row_valid,
                 q_valid=q_valid,
             ))

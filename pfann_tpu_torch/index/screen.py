@@ -74,6 +74,9 @@ from pfann_tpu_torch.index.align_kernel import QUERY_TILES
 from pfann_tpu_torch.utils.logging import get_logger
 
 SONG_GROUP = 8  # n_pad multiple (JAX's PALLAS_G): same padding slots as JAX
+# queries per dispatch at most on the CPU, as JAX's XLA path (its kernel
+# path, like the card here, takes MAX_BATCH)
+CPU_MAX_BATCH = 128
 
 
 def coarse_dtype_of(name, default: torch.dtype) -> torch.dtype:
@@ -390,6 +393,8 @@ class ScreenedAlignmentEngine:
         self.d = embeddings.shape[1] if embeddings.size else 128
         self.score_dtype = score_dtype
         self.coarse_dtype = coarse_dtype_of(coarse_dtype, score_dtype)
+        # queries per dispatch at most (the bench's --batch-sweep lowers it)
+        self.max_batch = MAX_BATCH if self.device.type == "cuda" else CPU_MAX_BATCH
 
         db3, coarse, self.R, self.Rc, self.n_pad = build_screen_layout(
             embeddings, counts, pad=pad, k=k, d=self.d
@@ -450,9 +455,11 @@ class ScreenedAlignmentEngine:
 
     # ------------------------------------------------------------------
     def _chunk_for(self, S: int) -> int:
-        """Queries per dispatch (``stage2_chunk`` under STAGE2_BYTES_CAP)."""
-        return stage2_chunk(self.top_m, self.R, S, self.d, self._db3.element_size(),
-                            self.STAGE2_BYTES_CAP)
+        """Queries per dispatch: ``stage2_chunk`` under STAGE2_BYTES_CAP, at
+        most ``max_batch``."""
+        return max(1, min(self.max_batch, stage2_chunk(
+            self.top_m, self.R, S, self.d, self._db3.element_size(),
+            self.STAGE2_BYTES_CAP)))
 
     def _chunks(self, filters, sub_lens=None):
         """Yield (rows slice, queries [n, S, d] f32 on the device, lens [n]
