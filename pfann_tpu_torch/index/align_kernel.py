@@ -22,11 +22,14 @@ keyed by a hash of the source and the flags, and loaded with ctypes.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 import torch
@@ -529,3 +532,19 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+
+# Where PFANN_LAUNCH_LOG names a file, a process that launched the kernel
+# appends its counts there as one JSON line when it exits: the evaluation
+# harness's child processes report what they ran.
+LAUNCH_LOG_ENV = "PFANN_LAUNCH_LOG"
+
+
+def _log_launches() -> None:
+    path = os.environ.get(LAUNCH_LOG_ENV)
+    if path and align_reduce.launches:
+        counts = {str(k).rsplit(".", 1)[-1]: v for k, v in align_reduce.launches_by_dtype.items()}
+        with open(path, "a") as f:
+            f.write(json.dumps({"argv": sys.argv, "launches": counts}) + "\n")
+
+
+atexit.register(_log_launches)

@@ -193,7 +193,7 @@ def _smem_limit(plan):
 
 
 @pytest.mark.parametrize("itemsize", [2, 1])
-@pytest.mark.parametrize("d", [4, 12, 128])
+@pytest.mark.parametrize("d", [4, 12, 64, 128])
 @pytest.mark.parametrize("S", [1, 5, 19, 32, 119])
 @pytest.mark.parametrize("B", [1, 7, 32, 100, 1024])
 def test_tile_plan(B, S, d, itemsize):
@@ -273,7 +273,7 @@ def test_tile_plan_takes_every_pr2_shape():
 
 
 @pytest.mark.parametrize("itemsize", [2, 1])
-@pytest.mark.parametrize("d", [4, 8, 12, 16, 20, 124, 128])
+@pytest.mark.parametrize("d", [4, 8, 12, 16, 20, 64, 124, 128])
 def test_tma_padding(d, itemsize):
     """TMA reads rows of a multiple of 16 bytes from 16-byte aligned bases:
     d is padded with zero columns to the least such width, which leaves
@@ -358,7 +358,7 @@ def _covered_once(plan, B, n_songs):
 
 
 @pytest.mark.parametrize("R", [40, 152, 160])
-@pytest.mark.parametrize("d", [4, 12, 128])
+@pytest.mark.parametrize("d", [4, 12, 64, 128])
 @pytest.mark.parametrize("S", [1, 5, 19, 32, 119])
 @pytest.mark.parametrize("B", [1, 7, 32, 65, 1024])
 def test_f32_tile_plan(B, S, d, R):
@@ -530,7 +530,7 @@ def _hold_to_plain(dbt, qt, R, S, n_songs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
-@pytest.mark.parametrize("d", [4, 12, 128])
+@pytest.mark.parametrize("d", [4, 12, 64, 128])
 @pytest.mark.parametrize("S", [1, 2, 19, 32, 119])
 @pytest.mark.parametrize("B", [1, 7, 8, 9, 33, 65, 1024])
 def test_kernel_shapes_on_card(cuda_device, monkeypatch, B, S, d, dtype):
