@@ -129,15 +129,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      captured): every mode of bench.py through the port's engines, each
      JSON line printed and held to bench.py's keys for its mode and this
      card: default with --batch-sweep (10,000 songs; bf16 launches at B =
-     128, 256 and 512 as well as 1,024), --sharded, --scale 50000 (bf16
-     stage 1 at Sc=5 and the noisy rescue), --scale 50000 --int8-exact
+     128, 256 and 512 as well as 1,024), --sharded, --scale 30000 (bf16
+     stage 1 at Sc=5 and the noisy rescue), --scale 30000 --int8-exact
      (int8 only), --long 10000 (bf16 coarse stage at Sc=30), --db on phase
      7's 10k-song DB directory as written (bf16), with db_dtype float32
      (f32 only) and with screen: true (int8 stage 1, bf16 control and
      rescue), --lm 256, --build 256 and --train-epoch on phase 9's
      synthetic config (no align-reduce launch).  The bf16 launches no
      earlier phase makes at their scale are held to the plain version and
-     timed: stage 1 at 50k songs, the Sc=30 coarse stage, the sweep's
+     timed: stage 1 at 30k songs, the Sc=30 coarse stage, the sweep's
      B = 128, 256 and 512.
  12. the evaluation harness (pfann_tpu_torch/tools/run_synth_pipeline.py,
      a child process tree in a scratch root): the v2 family corpus at
@@ -164,6 +164,31 @@ Phases, in order; any failure raises and the script exits nonzero:
      int8 stage 1 of screeni8, the bf16 exhaustive engine at d=64 and B=128
      on 10 s queries (19 rows, S=24 bucketed) and on 5-row ones (the 3 s
      sets' length, S=8).
+ 14. the screen at its auto-activation scale (tools.r04_scale30k, then
+     tools.r04_scale30k_resume, child processes) on phases 12-13's root:
+     29,870 distractors of 2 s (written in the background by the driver's
+     own command while phases 6-13 run; the driver then skips the step, as
+     the script does) make the 130-track DB 30,000 songs, served by the
+     screen with no override, the {"screen": false} control by the
+     exhaustive engine (Database's choice, and each matchemb process's
+     bf16 launches); the auto engine's answers (ids and times) equal the
+     control's on every query of every SNR; BENCH_r04_db30k.json's lines.
+     In this process, the escalation share per SNR at 30,000 songs and
+     the kernel shapes held to the plain version and timed: bf16 stage 1
+     and stage 3 of the screen and the exhaustive engine at B=128, d=64.
+ 15. round 5 at the flagship's width (d=128, h=1024, u=32), child
+     processes that run beside phase 14's (both chains spend most of
+     their wall starting processes): the train CLI for 1 epoch on a copy of
+     configs/flagship.json with only epoch changed (its corpus, 60 + 10
+     songs of 30 s, written in the background), the builder's
+     flagship_30kbase from phase 12's 130-track list, tools.r05_calibrate
+     (three cover corpora of 8 songs, NQ=8) and tools.r05_flagship (20
+     songs of 12 s and 4 of 64 s, NQ10=8, NQ60=2, COVER_SUB 0.03,
+     COVER_JITTER 0.02) through their environment: CALIBRATE_DONE,
+     R05_PIPELINE_DONE, every accuracy block, the 60 s sets' engine (the
+     matcher's topk-fallback log line; the 10 s sets' bf16 launches), and
+     the d=128 exhaustive launch of one 10 s set, held to the plain
+     version in this process.
 
 Phases 3, 4, 6, 7 (f1) and 11 print each kernel's time beside its bound (the
 larger of the operations over the card's published dense peak for their
@@ -179,7 +204,7 @@ Every kernel shape that is timed is held to the plain version on the
 same inputs; each f32 path prints the f32 form's largest |dbest| on a
 line of its own.  Each path (phase 5's two engines, phase 6's batches,
 phase 7's, 8's, 9's, 10's and 11's in-process paths; 10 (c)'s ranks and
-12's and 13's child processes report their own counts) is driven with the kernel's launch counts
+12's to 15's child processes report their own counts) is driven with the kernel's launch counts
 set to 0 just before it and read just after; the kernels line gives each
 form's (bf16, int8, f32) launches per path.  The line before the last is a JSON object
 describing each kernel; the last line is {"ok": true, "device": {...}}.
@@ -189,6 +214,7 @@ import collections
 import concurrent.futures
 import contextlib
 import csv
+import glob
 import io
 import json
 import math
@@ -262,7 +288,7 @@ from pfann_tpu_torch.parallel.mesh import (  # noqa: E402
     row_block,
     spawn_ranks,
 )
-from pfann_tpu_torch.tools import export_model, make_synth_corpus  # noqa: E402
+from pfann_tpu_torch.tools import export_model, make_synth_corpus, r04_scale30k  # noqa: E402
 from pfann_tpu_torch.train.__main__ import main as train_main  # noqa: E402
 from pfann_tpu_torch.train.trainer import Trainer  # noqa: E402
 from pfann_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
@@ -1935,19 +1961,19 @@ def launch_shapes(keep=None):
         align_mod.align_reduce = real
 
 
-def ported_bench(dev, card, db10k, train_cfg, n_songs=10_000, scale=50_000,
+def ported_bench(dev, card, db10k, train_cfg, n_songs=10_000, scale=30_000,
                  audio_songs=256, train_rows=1280):
     """Phase 11: python -m pfann_tpu_torch.bench, every mode of bench.py,
     in process with stdout captured: default with --batch-sweep,
-    --sharded, --scale 50000 (bf16 stage 1; phase 6 serves 100k songs),
-    --scale 50000 --int8-exact,
+    --sharded, --scale 30000 (bf16 stage 1; phase 6 serves 100k songs),
+    --scale 30000 --int8-exact,
     --long 10000, --db on phase 7's 10k-song DB (``db10k``) as written (bf16
     align), with db_dtype float32 and with screen: true (int8 stage 1),
     --lm 256, --build 256 and --train-epoch on phase 9's synthetic config
     (``train_cfg``).  Each mode's JSON line is printed and must carry
     bench.py's keys and this card; each mode's launches are recorded and
     must be of the forms its path runs.  The bf16 launches no earlier phase
-    makes at their scale are held to the plain version: stage 1 at 50k
+    makes at their scale are held to the plain version: stage 1 at 30k
     songs (Rc=40, Sc=5, B=1024), the long-query coarse stage (Sc=30 over
     10k songs) and the sweep's B = 128, 256 and 512.  The keywords cut the
     run for a rehearsal on the CPU (``n_songs`` for default, --sharded and
@@ -2006,7 +2032,7 @@ def ported_bench(dev, card, db10k, train_cfg, n_songs=10_000, scale=50_000,
                        n_songs=n_songs, train_rows=train_rows)
     forms("--sharded", n, "bf16")
 
-    # the screened engine at 50k songs: bf16 stage 1 (Rc=40, Sc=5), the
+    # the screened engine at 30k songs: bf16 stage 1 (Rc=40, Sc=5), the
     # rescue at R=160, S=19
     tag = "--scale %d" % scale
     _, n, shapes, kept = drive(tag, "--scale", port_bench.main, scale=scale,
@@ -2073,15 +2099,14 @@ _FORM = {"bfloat16": "bf16", "int8": "int8", "float32": "f32"}
 HARNESS_JOBS = 8
 
 
-def harness_child(label, module, argv, cwd, launch_log, timeout):
-    """python -m pfann_tpu_torch.<module> in ``cwd``, each port process under
-    it appending its align-reduce launches to ``launch_log`` as it exits.
-    Its stdout and stderr go whole to <cwd>/chip_smoke_<label>.log;
-    returns (stdout, wall s).  A nonzero exit fails with the output's tail."""
+def harness_child(label, module, argv, cwd, launch_log, timeout, env=None):
+    """python -m pfann_tpu_torch.<module> in ``cwd`` (``env`` added to its
+    environment), each port process under it appending its align-reduce
+    launches to ``launch_log`` as it exits.  Its stdout and stderr go whole
+    to <cwd>/chip_smoke_<label>.log; returns (stdout, wall s).  A nonzero
+    exit fails with the output's tail."""
     log = os.path.join(cwd, "chip_smoke_%s.log" % label)
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""),
-               PFANN_LAUNCH_LOG=launch_log)
+    env = child_env(cwd, PFANN_LAUNCH_LOG=launch_log, **(env or {}))
     tm = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "pfann_tpu_torch." + module, *argv], cwd=cwd,
                        env=env, capture_output=True, text=True, timeout=timeout)
@@ -2327,6 +2352,311 @@ def harness_on_card(dev, card, root, db_songs=100, num_queries=100, extra=(), ba
     del db, kept
     torch.cuda.empty_cache()
     return {k: max(v) for k, v in holds.items()}
+
+
+# ------------------------------------------------------------ 14-15
+# phase 14: distractors that grow phase 12's 130-track DB to 30,000 songs,
+# where Database picks the screen by the auto path; 2 s each (never queried)
+SCALE_DISTRACT = (29_870, 2)
+SCALE_SONGS = 30_000
+# phase 15: small corpora through the r05 drivers' environment; the
+# flagship-width model trains on configs/flagship.json with epoch 1
+R05_ENV = {"NQ": "8", "NQ10": "8", "NQ60": "2", "COVER_SUB": "0.03", "COVER_JITTER": "0.02",
+           "R5_ROOT": "out/r5_smoke", "R5M_ROOT": "out/r5m_smoke"}
+R05_EPOCHS = 1
+# (root, make_synth_corpus flags); cal_sub* and the r5 roots as the scripts
+# make them (family size 4, every song a cover), cut to a few songs
+R05_CORPORA = [("out/synth_big", ("--train-songs", 60, "--val-songs", 10, "--db-songs", 0,
+                                  "--test-songs", 0, "--seconds", 30, "--seed", 5))] + [
+    ("out/cal_sub%d" % sub, ("--train-songs", 0, "--val-songs", 0, "--db-songs", 6,
+                             "--test-songs", 2, "--seconds", 12, "--family-size", 4,
+                             "--cover-frac", "1.0", "--cover-sub", "0.%d" % sub,
+                             "--cover-jitter", "0.06", "--seed", seed))
+    for sub, seed in ((10, 61), (25, 62), (45, 63))] + [
+    (R05_ENV[var], ("--train-songs", 0, "--val-songs", 0, "--db-songs", songs,
+                    "--test-songs", test, "--seconds", seconds, "--family-size", 4,
+                    "--cover-frac", "1.0", "--cover-sub", R05_ENV["COVER_SUB"],
+                    "--cover-jitter", R05_ENV["COVER_JITTER"], "--seed", seed))
+    for var, songs, test, seconds, seed in (("R5_ROOT", 12, 8, 12, 71),
+                                            ("R5M_ROOT", 2, 2, 64, 72))]
+
+
+def child_env(root, **extra):
+    """The environment of the harness phases' child processes: the
+    repository on the path, and their compiled bytecode kept under the
+    scratch ``root`` (where the environment forbids writing it beside the
+    sources, each child would compile torch from source again)."""
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""), **extra)
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    env.setdefault("PYTHONPYCACHEPREFIX", os.path.join(root, ".pycache"))
+    return env
+
+
+@contextlib.contextmanager
+def harness_corpora(root):
+    """Phases 14-15's corpora, written in the background (host work on
+    idle cores) while phases 6-13 run: phase 14's distractors by
+    r04_scale30k's own generation command (the driver then skips the step,
+    as the script does where the list exists) and phase 15's small
+    corpora.  Yields {root: Popen}; every process still running at the
+    end of the block is killed."""
+    os.makedirs(root, exist_ok=True)
+    cmds = {r04_scale30k.DISTRACT_ROOT: r04_scale30k.distractor_corpus(*SCALE_DISTRACT)}
+    for at, flags in R05_CORPORA:
+        cmds[at] = [sys.executable, "-m", "pfann_tpu_torch.tools.make_synth_corpus",
+                    "--root", at, *map(str, flags)]
+    procs = {}
+    try:
+        for at, cmd in cmds.items():
+            procs[at] = subprocess.Popen(cmd, cwd=root, env=child_env(root),
+                                         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                         text=True)
+        yield procs
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def corpora_done(procs, roots, timeout=600):
+    """Wait for the background corpora ``roots``; one that failed fails."""
+    for at in roots:
+        _, err = procs[at].communicate(timeout=timeout)
+        if procs[at].returncode:
+            raise AssertionError("corpus %s: exit %d\n%s" % (at, procs[at].returncode,
+                                                              err[-2000:]))
+
+
+def accuracy_lines(stdout, label):
+    """{label line: {"exact"|"near"|"song": %}} of a driver's stdout, each
+    label (``cover_sub=..``, ``set=..``, ``model=..``) followed by the
+    three lines of tools/accuracy.py; a block without its three lines
+    fails."""
+    acc, at = {}, None
+    for line in stdout.splitlines():
+        if line.startswith(label):
+            at = acc.setdefault(line, {})
+            continue
+        m = _ACC_LINE.match(line)
+        if m and at is not None:
+            at[m.group(1).split()[0]] = float(m.group(2))
+    bad = [k for k, v in acc.items() if sorted(v) != ["exact", "near", "song"]]
+    if not acc or bad:
+        raise AssertionError("accuracy blocks without their three lines: %s" % (bad or acc))
+    return acc
+
+
+def matchemb_launches(launch_log, db_dir):
+    """The bf16 launches that the matchemb processes serving ``db_dir``
+    logged (each line of the launch log carries its process's argv)."""
+    n = 0
+    with open(launch_log) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if rec["argv"][0].endswith("matchemb.py") and db_dir in rec["argv"]:
+                n += rec["launches"]["bfloat16"]
+    return n
+
+
+def open_db_dir(path, dev, **overrides):
+    with open(os.path.join(path, "configs.json")) as fh:
+        params = json.load(fh)
+    return Database(path, dict(params["indexer"], **overrides), params["hop_size"],
+                    dev), params
+
+
+def scale30k_on_card(dev, card, root, procs, timeout=900):
+    """Phase 14: r04_scale30k then r04_scale30k_resume (child processes) on
+    phases 12-13's root, with 29,870 distractors of 2 s: the merged DB
+    reaches 30,000 songs and Database serves it with the screen by the
+    auto path, the {"screen": false} control with the exhaustive engine.
+    The auto engine's answers (ids and times) must equal the control's on
+    every query of every SNR.  In this process: each DB's engine, the
+    share of queries escalated per SNR, and the kernel shapes the phase
+    launches (bf16 stage 1 and stage 3 of the screen, the exhaustive
+    engine at B=128), held to the plain version and timed.  Phase 15's
+    child processes (``flagship_children``) run beside phase 14's: both
+    chains spend most of their wall starting processes.  Returns the
+    holds' largest bf16 |dbest| and phase 15's children's results."""
+    phase(14, "the screen at 30,000 songs: tools.r04_scale30k, tools.r04_scale30k_resume "
+              "(and phase 15's child processes beside them)")
+    log14 = os.path.join(root, "launches14.jsonl")
+    flags = ["--device", dev.type, "--jobs", "2"]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        children15 = pool.submit(flagship_children, dev, root, procs, timeout)
+        corpora_done(procs, [r04_scale30k.DISTRACT_ROOT])
+        out, wall = harness_child("r04_scale30k", "tools.r04_scale30k",
+                                  ["--distract-songs", str(SCALE_DISTRACT[0]), "--seconds",
+                                   str(SCALE_DISTRACT[1]), *flags], root, log14, timeout)
+        out2, wall2 = harness_child("r04_scale30k_resume", "tools.r04_scale30k_resume", flags,
+                                    root, log14, timeout)
+        r15 = children15.result()
+    n14 = PATHS["14: r04_scale30k + resume (child processes)"] = child_launches(log14)
+    bench = [json.loads(ln) for ln in (out + out2).splitlines() if ln.startswith("{")]
+    print("  14 r04_scale30k %.1f s, resume %.1f s; launches (child processes): %s  %s"
+          % (wall, wall2, n14, card), flush=True)
+    for ln in bench:
+        print("  14 BENCH_r04_db30k.json: %s  %s" % (json.dumps(ln), card), flush=True)
+    for name, text in (("r04_scale30k", out), ("resume", out2)):
+        acc = accuracy_lines(text, "model=")
+        for tag in ("synth30k", "alignctl30k"):
+            print("  14 %s %-11s song top-1 %% at %s dB: %s" % (
+                name, tag, "/".join("%+d" % s for s in SNRS),
+                " ".join("%.2f" % acc["model=%s snr=%d" % (tag, s)]["song"] for s in SNRS)),
+                flush=True)
+    # which engine served which DB: the matchemb processes' bf16 launches
+    # (the children's launch log), and Database's own choice
+    served = {tag: matchemb_launches(log14, "out/dbs/" + tag)
+              for tag in ("synth30k", "alignctl30k")}
+    dbs = {}
+    for tag in ("synth30k", "alignctl30k"):
+        dbs[tag], params = open_db_dir(os.path.join(root, "out", "dbs", tag), dev)
+        print("  14 %s: %d songs, %d embeddings, engine %s (%s); matchemb bf16 launches %s"
+              % (tag, len(dbs[tag].songList), dbs[tag].ntotal, dbs[tag].engine,
+                 "auto" if tag == "synth30k" else '{"screen": false}',
+                 served[tag]), flush=True)
+    if (len(dbs["synth30k"].songList) != SCALE_SONGS or dbs["synth30k"].engine != "screen"
+            or dbs["alignctl30k"].engine != "align"
+            or not all(served.values())):
+        raise AssertionError("phase 14: want %d songs served by the screen (auto) and the "
+                             "control by the exhaustive engine, each with bf16 launches"
+                             % SCALE_SONGS)
+    for snr in SNRS:
+        got = [csv_rows(os.path.join(root, "out", "results", "%s_snr%d_detail.csv"
+                                     % (tag, snr))) for tag in ("synth30k", "alignctl30k")]
+        if [r[:2] + r[3:4] for r in got[0]] != [r[:2] + r[3:4] for r in got[1]]:
+            raise AssertionError("synth30k answers differ from alignctl30k's at %+d dB" % snr)
+    print("  14 synth30k (screen, auto) == alignctl30k on every query of every SNR (ids and "
+          "times)", flush=True)
+
+    bf16 = torch.bfloat16
+    d = params["model"]["d"]
+    sets = {snr: query_embeddings_of(os.path.join(root, "out", "qemb", "synth_snr%d" % snr), d)
+            for snr in SNRS}
+    db = dbs.pop("synth30k")
+    shares = []
+    with launch_shapes(lambda s: True) as (_, kept):
+        for snr in SNRS:
+            esc0 = db._align.escalated
+            for at in range(0, len(sets[snr]), 128):
+                db.query_embeddings_batch(sets[snr][at : at + 128])
+            shares.append((db._align.escalated - esc0) / max(len(sets[snr]), 1))
+    print("  14 screen at 30,000 songs, share of queries escalated to stage 3 at %s dB: %s"
+          % ("/".join("%+d" % s for s in SNRS), " ".join("%.4f" % x for x in shares)),
+          flush=True)
+    errs = []
+
+    def hold(name, shape, kept):
+        dbt, q = kept[shape]
+        errs.append(held_launch(name, dbt, q, shape[1], shape[2], shape[4], card)["err"])
+
+    hold("14 bf16 stage 1 at 30,000 songs", next(s for s in kept if s[0] == bf16
+                                                 and s[1] == db._align.Rc), kept)
+    stage3 = [s for s in kept if s[0] == bf16 and s[1] == db._align.R]
+    if not stage3:
+        print("  14 no query escalated; stage 3 held with every query escalated", flush=True)
+        del db, kept
+        db, _ = open_db_dir(os.path.join(root, "out", "dbs", "synth30k"), dev,
+                            screen_rescue=2.0)
+        with launch_shapes(lambda s: s[0] == bf16 and s[1] == db._align.R) as (_, kept):
+            db.query_embeddings_batch(sets[-6][:128])
+        stage3 = list(kept)
+    hold("14 bf16 stage 3 at 30,000 songs", stage3[0], kept)
+    del db, kept
+    db = dbs.pop("alignctl30k")
+    with launch_shapes(lambda s: s[0] == bf16) as (_, kept):
+        db.query_embeddings_batch((sets[-6] + sets[-4])[:128])
+    hold("14 bf16 exhaustive at 30,000 songs", next(iter(kept)), kept)
+    del db, kept
+    torch.cuda.empty_cache()
+    return max(errs), r15
+
+
+def flagship_children(dev, root, procs, timeout):
+    """Phase 15's child processes (run beside phase 14's): the train CLI on
+    a copy of configs/flagship.json with only ``epoch`` changed (d=128,
+    h=1024, u=32), flagship_30kbase built from phase 12's 130-track list,
+    then tools.r05_calibrate and tools.r05_flagship through their
+    environment (``R05_ENV``).  Returns their outputs, walls, the model's
+    widths and the matcher logs that r05_flagship wrote."""
+    corpora_done(procs, [at for at, _ in R05_CORPORA])
+    log15 = os.path.join(root, "launches15.jsonl")
+    with open(os.path.join(REPO, "configs", "flagship.json")) as fh:
+        cfg = json.load(fh)
+    cfg["epoch"] = R05_EPOCHS
+    cfg_path = os.path.join(root, "configs", "flagship_epoch%d.json" % R05_EPOCHS)
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh, indent=2)
+    walls, out = {}, {}
+    _, walls["train"] = harness_child("train_flagship", "train",
+                                      ["-p", os.path.relpath(cfg_path, root), "-w", "2",
+                                       "--device", dev.type], root, log15, timeout)
+    _, walls["flagship_30kbase"] = harness_child(
+        "build_flagship_30kbase", "builder", ["out/synth_dataset/lists/db.txt",
+                                              "out/dbs/flagship_30kbase", "out/models/flagship",
+                                              "--device", dev.type], root, log15, timeout)
+    flags = ["--device", dev.type, "--jobs", str(HARNESS_JOBS)]
+    out["cal"], walls["r05_calibrate"] = harness_child(
+        "r05_calibrate", "tools.r05_calibrate", flags, root, log15, timeout, R05_ENV)
+    logs = set(glob.glob(os.path.join(root, "logs", "nnmatcher-*.log")))
+    out["r5"], walls["r05_flagship"] = harness_child(
+        "r05_flagship", "tools.r05_flagship", flags, root, log15, timeout, R05_ENV)
+    logs = set(glob.glob(os.path.join(root, "logs", "nnmatcher-*.log"))) - logs
+    return dict(out=out, walls=walls, log=log15, model=cfg["model"], matcher_logs=logs)
+
+
+def flagship_on_card(dev, card, root, r15):
+    """Phase 15: round 5 at the flagship's width on small corpora, from
+    ``flagship_children``'s results: the trained model's first epoch,
+    CALIBRATE_DONE and R05_PIPELINE_DONE, every accuracy block, the engine
+    that served the 60 s sets (the matcher's fallback log line and the
+    children's launches), and the d=128 launch of the 10 s sets, held to
+    the plain version in this process.  Returns the hold's bf16 |dbest|."""
+    phase(15, "round 5 at flagship width: tools.r05_calibrate, tools.r05_flagship")
+    cal, r5, walls, m = r15["out"]["cal"], r15["out"]["r5"], r15["walls"], r15["model"]
+    n15 = PATHS["15: r05_calibrate + r05_flagship (child processes)"] = \
+        child_launches(r15["log"])
+    print("  15 flagship (d=%d, h=%d, u=%d) trained %d epoch(s): %s" % (
+        m["d"], m["h"], m["u"], R05_EPOCHS,
+        epoch_metrics(os.path.join(root, "out", "models", "flagship"))), flush=True)
+    print("  15 walls (beside phase 14): %s; launches (child processes): %s  %s" % (
+        ", ".join("%s %.1f s" % kv for kv in walls.items()), n15, card), flush=True)
+    if cal.splitlines()[-1:] != ["CALIBRATE_DONE"] or \
+            r5.splitlines()[-1:] != ["R05_PIPELINE_DONE"]:
+        raise AssertionError("phase 15: CALIBRATE_DONE / R05_PIPELINE_DONE missing")
+    for text, label, n in ((cal, "cover_sub=", 6), (r5, "set=", 16)):
+        acc = accuracy_lines(text, label)
+        if len(acc) != n:
+            raise AssertionError("phase 15: %d %s blocks, want %d" % (len(acc), label, n))
+        for k, v in acc.items():
+            print("  15 %-22s song %.2f near %.2f exact %.2f" % (k, v["song"], v["near"],
+                                                                  v["exact"]), flush=True)
+    fallback = set()
+    for path in r15["matcher_logs"]:
+        with open(path) as fh:
+            fallback |= {ln.split("] ", 2)[-1].strip() for ln in fh if "topk fallback" in ln}
+    print("  15 60 s sets: %s" % (sorted(fallback) or "no fallback line"), flush=True)
+    if n15["bf16"] < 1 or not any("119 windows" in ln for ln in fallback):
+        raise AssertionError("phase 15: want bf16 launches (10 s sets) and the 60 s sets "
+                             "through the topk fallback (119 windows)")
+
+    # the d=128 launch of the 10 s sets, in this process
+    bf16 = torch.bfloat16
+    res = os.path.join(root, "out", "results", "smoke_r5_snr-6.txt")
+    with contextlib.chdir(root), launch_shapes(lambda s: s[0] == bf16) as (_, kept):
+        matcher.main(["matcher", "--batch", "128", "out/queries/r5_snr-6/list.txt",
+                      "out/dbs/flagship_r5", res, "--device", dev.type])
+    shape = next(iter(kept))
+    dbt, q = kept[shape]
+    if dbt.shape[1] != 128:
+        raise AssertionError("phase 15 launched at d=%d" % dbt.shape[1])
+    err = held_launch("15 bf16 exhaustive at d=128 (flagship_r5)", dbt, q, shape[1], shape[2],
+                      shape[4], card)["err"]
+    del kept, dbt, q
+    torch.cuda.empty_cache()
+    return err
 
 
 def csv_rows(path):
@@ -2663,21 +2993,25 @@ def main() -> None:
                                      % os.path.basename(path))
         print("  screened TSVs (default, --top1) == the align engine's TSV")
 
-        shot = screen_scenario(dev, card)
-        max_err = max(max_err, shot["bf16_err"])
-        p5 = dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth, lst=lst)
-        big, p6 = shot.pop("corpus"), shot.pop("answers")
-        f1 = rest_of_serving(dev, card, tmp, emb, big, p5)
-        landmark_front_end(dev, card, tmp, p5)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp9:
-            synth = training_on_card(dev, card, tmp9)
-            errs10 = multi_gpu_paths(dev, card, tmp9, big, p4, p6, synth)
-            del big, p4, p6  # phase 11 builds its own 50k-song corpora
-            err11 = ported_bench(dev, card, os.path.join(tmp, "db10k"),
-                                 os.path.join(tmp9, "train.json"))
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as root12:
+        # phases 14-15's corpora are written in the background from here on
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as root12, \
+                harness_corpora(root12) as corpora:
+            shot = screen_scenario(dev, card)
+            max_err = max(max_err, shot["bf16_err"])
+            p5 = dict(qlist=qlist, db_dir=db_dir, tsv=res, truth=truth, lst=lst)
+            big, p6 = shot.pop("corpus"), shot.pop("answers")
+            f1 = rest_of_serving(dev, card, tmp, emb, big, p5)
+            landmark_front_end(dev, card, tmp, p5)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp9:
+                synth = training_on_card(dev, card, tmp9)
+                errs10 = multi_gpu_paths(dev, card, tmp9, big, p4, p6, synth)
+                del big, p4, p6  # phase 11 builds its own 30k-song corpora
+                err11 = ported_bench(dev, card, os.path.join(tmp, "db10k"),
+                                     os.path.join(tmp9, "train.json"))
             errs12 = harness_on_card(dev, card, root12)
-    max_err = max(max_err, errs10["bf16"], err11, errs12["bf16"])
+            err14, r15 = scale30k_on_card(dev, card, root12, corpora)
+            err15 = flagship_on_card(dev, card, root12, r15)
+    max_err = max(max_err, errs10["bf16"], err11, errs12["bf16"], err14, err15)
 
     # every driven path's launches, phases 5-7 (0 where a path runs none)
     launches = sum(p["bf16"] for p in PATHS.values())

@@ -29,7 +29,6 @@ no counterpart: the port's kernel library is built once into
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
 
 from pfann_tpu_torch.utils.device import pop_device_flag, resolve_device
@@ -37,11 +36,11 @@ from pfann_tpu_torch.utils.harness import (
     SNRS,
     check,
     check_all,
-    child_env,
     host_tool,
     pop_jobs_flag,
     port,
     stamp,
+    tee_last_line,
 )
 
 BASE_DB = "out/dbs/synth_synth"
@@ -71,17 +70,7 @@ def accuracy(tag: str, snr: int) -> None:
 
 def bench_db(db: str, out: str, device: str) -> None:
     """``bench --db <db> | tail -1 | tee <out>``."""
-    sys.stdout.flush()
-    proc = subprocess.run(port("bench", "--db", db, "--device", device), env=child_env(),
-                          stdout=subprocess.PIPE, text=True)
-    if proc.returncode:
-        sys.stdout.write(proc.stdout)
-        raise SystemExit(proc.returncode)
-    lines = proc.stdout.splitlines()
-    last = lines[-1] + "\n" if lines else ""
-    sys.stdout.write(last)
-    with open(out, "w") as f:
-        f.write(last)
+    tee_last_line(port("bench", "--db", db, "--device", device), out)
 
 
 def main(argv: list[str] | None = None) -> None:

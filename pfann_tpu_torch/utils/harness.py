@@ -1,5 +1,6 @@
 """Steps of the evaluation-harness drivers (``genall``, ``testall`` and
-``tools/{run_synth_pipeline,r04_pipeline,r04_rescue}``).
+``tools/{run_synth_pipeline,r04_pipeline,r04_rescue,r04_scale30k,
+r04_scale30k_resume,r04_bench,r05_calibrate,r05_flagship}``).
 
 Each step is a child process, as in the shell scripts the drivers port:
 the port's CLIs run as ``python -m pfann_tpu_torch.<cli>``, and the
@@ -64,7 +65,7 @@ def check(cmd: list[str], cwd: str | None = None, echo: bool = False,
 
 
 def check_all(cmds: list[list[str]], jobs: int = 1, cwd: str | None = None,
-              code: int | None = None) -> None:
+              code: int | None = None, echo: bool = False) -> None:
     """Run independent steps (one per SNR set, say) in list order, at most
     ``jobs`` at once; ``jobs=1`` is the scripts' one-after-another.  The
     first failing step in list order stops the driver as ``check`` does,
@@ -72,11 +73,11 @@ def check_all(cmds: list[list[str]], jobs: int = 1, cwd: str | None = None,
     start."""
     if jobs <= 1:
         for cmd in cmds:
-            check(cmd, cwd=cwd, code=code)
+            check(cmd, cwd=cwd, code=code, echo=echo)
         return
     sys.stdout.flush()
     with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
-        runs = [pool.submit(call, cmd, cwd) for cmd in cmds]
+        runs = [pool.submit(call, cmd, cwd, echo) for cmd in cmds]
         for run in runs:
             rc = run.result()
             if rc:
@@ -102,6 +103,38 @@ def timed(name: str, cmd: list[str], cwd: str | None = None) -> None:
     t0 = time.perf_counter()
     check(cmd, cwd=cwd, echo=True)
     print("step %s %.3f s" % (name, time.perf_counter() - t0), flush=True)
+
+
+def tee_last_line(cmd: list[str], out: str, env: dict[str, str] | None = None) -> None:
+    """``cmd | tail -1 | tee <out>``, except that a failing step stops the
+    driver with its exit code (the pipe hides it) and writes nothing."""
+    sys.stdout.flush()
+    proc = subprocess.run(cmd, env=child_env() | (env or {}), stdout=subprocess.PIPE,
+                          text=True)
+    if proc.returncode:
+        sys.stdout.write(proc.stdout)
+        raise SystemExit(proc.returncode)
+    lines = proc.stdout.splitlines()
+    last = lines[-1] + "\n" if lines else ""
+    sys.stdout.write(last)
+    with open(out, "w") as f:
+        f.write(last)
+
+
+def concat(paths: list[str], out: str) -> None:
+    """``cat paths... > out``, echoed as ``set -x`` does."""
+    print("+ cat %s > %s" % (" ".join(paths), out), file=sys.stderr, flush=True)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "wb") as f:
+        for path in paths:
+            with open(path, "rb") as src:
+                f.write(src.read())
+
+
+def env_or(name: str, default: str) -> str:
+    """``${NAME:-default}``: the variable, or ``default`` where it is
+    unset or empty."""
+    return os.environ.get(name) or default
 
 
 def stamp(message: str) -> None:

@@ -21,7 +21,16 @@ import pytest
 import torch
 
 from pfann_tpu_torch import testall
-from pfann_tpu_torch.tools import r04_pipeline, r04_rescue, run_synth_pipeline
+from pfann_tpu_torch.tools import (
+    r04_bench,
+    r04_pipeline,
+    r04_rescue,
+    r04_scale30k,
+    r04_scale30k_resume,
+    r05_calibrate,
+    r05_flagship,
+    run_synth_pipeline,
+)
 from tests import torch_harness_util as hu
 
 SMALL = ["--db-songs", "2", "--num-queries", "1", "--epochs", "1", "--train-songs", "2",
@@ -153,6 +162,11 @@ def test_run_synth_pipeline_defaults_match_the_script(tmp_path, monkeypatch, cap
     (run_synth_pipeline, None),
     (r04_pipeline, ["r04_pipeline"]),
     (r04_rescue, ["r04_rescue"]),
+    (r04_scale30k, []),
+    (r04_scale30k_resume, ["r04_scale30k_resume"]),
+    (r04_bench, ["r04_bench"]),
+    (r05_calibrate, ["r05_calibrate"]),
+    (r05_flagship, ["r05_flagship"]),
 ])
 def test_default_device_raises_without_card(driver, argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

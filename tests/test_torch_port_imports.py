@@ -2,8 +2,9 @@
 
 Every module of ``pfann_tpu_torch`` is imported in a fresh interpreter
 whose ``sys.meta_path`` refuses ``pfann_tpu`` and ``jax`` (and their
-submodules), and the syntax trees of ``chip_smoke.py`` and
-``tools/torch_kernel_sweep.py`` name neither.
+submodules), and the syntax trees of ``chip_smoke.py``,
+``tools/torch_kernel_sweep.py`` and ``tools/torch_fullsize.py`` name
+neither.
 """
 
 import ast
@@ -87,7 +88,12 @@ def test_port_modules_import_without_pfann_tpu_or_jax():
                      "pfann_tpu_torch.utils.harness",
                      "pfann_tpu_torch.tools.run_synth_pipeline",
                      "pfann_tpu_torch.tools.r04_pipeline",
-                     "pfann_tpu_torch.tools.r04_rescue"):
+                     "pfann_tpu_torch.tools.r04_rescue",
+                     "pfann_tpu_torch.tools.r04_scale30k",
+                     "pfann_tpu_torch.tools.r04_scale30k_resume",
+                     "pfann_tpu_torch.tools.r04_bench",
+                     "pfann_tpu_torch.tools.r05_calibrate",
+                     "pfann_tpu_torch.tools.r05_flagship"):
         assert expected in names
 
 
@@ -113,4 +119,13 @@ def test_harness_report_imports_neither():
     with open(os.path.join(REPO, "tools", "torch_harness_report.py")) as f:
         names = list(_module_names(ast.parse(f.read())))
     assert "pfann_tpu_torch.index.database" in names
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN]
+
+
+def test_fullsize_script_imports_neither():
+    """The script of the harness's full-size runs on the card lives
+    outside the package too."""
+    with open(os.path.join(REPO, "tools", "torch_fullsize.py")) as f:
+        names = list(_module_names(ast.parse(f.read())))
+    assert "pfann_tpu_torch.tools" in names
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN]

@@ -39,6 +39,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -60,12 +61,21 @@ CORPUS = ("--train-songs", "2", "--val-songs", "1", "--db-songs", "3", "--test-s
 ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
 
 
+# Compiled bytecode of the children's imports, shared by every child: where
+# the environment forbids writing it beside the sources
+# (PYTHONDONTWRITEBYTECODE), each child would compile scipy, torch and jax
+# from source again, seconds a process.
+PYCACHE = os.path.join(tempfile.gettempdir(), "pfann_harness_pycache")
+
+
 def env(**extra: str) -> dict[str, str]:
     """The children's environment: the repository on the path, JAX on
-    the CPU, one thread each."""
+    the CPU, one thread each, bytecode cached under ``PYCACHE``."""
     flags = os.environ.get("XLA_FLAGS", "")
     out = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **ONE_THREAD,
-               XLA_FLAGS=(flags + " --xla_cpu_multi_thread_eigen=false").strip())
+               XLA_FLAGS=(flags + " --xla_cpu_multi_thread_eigen=false").strip(),
+               PYTHONPYCACHEPREFIX=PYCACHE)
+    out.pop("PYTHONDONTWRITEBYTECODE", None)
     out.update(extra)
     return out
 
@@ -255,10 +265,11 @@ def compare_nn(jax_result: str, port_result: str, step: float = 0.5) -> tuple[in
 def accuracy_blocks(stdout: str) -> list[tuple[str, list[str]]]:
     """``tools/accuracy.py``'s three lines per result, each with the label
     line the driver printed before it (``snr=..``, ``fsm=.. snr=..``,
-    ``model=.. snr=..``; empty where it prints none)."""
+    ``model=.. snr=..``, ``set=.. snr=..``, ``cover_sub=.. snr=..``; empty
+    where it prints none)."""
     blocks, label = [], ""
     for line in stdout.splitlines():
-        if line.startswith(("snr=", "fsm=", "model=")):
+        if line.startswith(("snr=", "fsm=", "model=", "set=", "cover_sub=")):
             label = line
         elif line.startswith("exact match"):
             blocks.append((label, [line]))
@@ -281,3 +292,89 @@ def compare_accuracy(jax_out: str, port_out: str, slack: list[int]) -> None:
             else:
                 assert x.split()[:-3] == y.split()[:-3]
                 assert abs(int(x.split()[-3]) - int(y.split()[-3])) <= n, (la, x, y)
+
+
+# The port CLIs' names in the scripts' words (``python -m
+# pfann_tpu_torch.<cli>`` for ``python <script>``).
+SCRIPT_OF = {"tools.make_synth_corpus": "tools/make_synth_corpus.py", "builder": "builder.py",
+             "tools.merge_dbs": "tools/merge_dbs.py", "matchemb": "matchemb.py",
+             "matcher": "matcher.py", "genquery": "genquery.py", "bench": "bench.py"}
+
+# bash functions that stand for ``python`` and ``cat`` in a script: each
+# call appends its argv as one tab-separated line to $LOG (``python``'s
+# first field the environment variables the scripts set on one command)
+_RECORDER = r"""
+python() {
+  { printf 'python\t%s' "${BENCH_SCREEN_DTYPE:+BENCH_SCREEN_DTYPE=$BENCH_SCREEN_DTYPE}"
+    for a in "$@"; do printf '\t%s' "$a"; done; printf '\n'; } >> "$LOG"
+}
+cat() { { printf 'cat\tcat'; for a in "$@"; do printf '\t%s' "$a"; done; printf '\n'; } >> "$LOG"; }
+export -f python cat
+"""
+
+
+def script_commands(tmp: str, name: str, **env: str) -> list[list[str]]:
+    """The commands ``tools/<name>.sh`` runs, in order, from an empty root
+    ``tmp``: each ``python`` and ``cat`` of the script is a bash function
+    that records its argv (``[env, script, args...]`` and ``["cat",
+    files...]``).  The script runs as a copy whose ``/tmp/`` is ``tmp/``
+    under the root (the drivers' recorded departure)."""
+    os.makedirs(os.path.join(tmp, "tools"), exist_ok=True)
+    os.makedirs(os.path.join(tmp, "tmp"), exist_ok=True)
+    with open(os.path.join(REPO, "tools", name + ".sh")) as f:
+        text = f.read().replace("/tmp/", "tmp/")
+    script = os.path.join(tmp, "tools", name + ".sh")
+    with open(script, "w") as f:
+        f.write(text)
+    log = os.path.join(tmp, "commands.log")
+    open(log, "w").close()
+    clean = {k: v for k, v in os.environ.items() if k not in (
+        "NQ", "NQ10", "NQ60", "COVER_SUB", "COVER_JITTER", "R5_ROOT", "R5M_ROOT",
+        "BENCH_SCREEN_DTYPE")}
+    subprocess.run(["bash", "-c", _RECORDER + "bash tools/%s.sh" % name], cwd=tmp, check=True,
+                   env=dict(clean, LOG=log, **env), capture_output=True, timeout=60)
+    with open(log) as f:
+        return [line.rstrip("\n").split("\t")[1:] for line in f]
+
+
+def driver_words(cmd, env=None) -> list[str]:
+    """A driver's step in the words ``script_commands`` records: ``[env,
+    script, args...]`` without the port's ``--device``."""
+    cmd = [str(c) for c in cmd]
+    assert cmd[0] == sys.executable
+    if cmd[1] == "-m":
+        rest = cmd[3:]
+        if rest[-2:-1] == ["--device"]:
+            rest = rest[:-2]
+        words = [SCRIPT_OF[cmd[2][len("pfann_tpu_torch."):]], *rest]
+    else:
+        assert cmd[1].startswith(REPO + os.sep), cmd
+        words = [os.path.relpath(cmd[1], REPO), *cmd[2:]]
+    return ["".join("%s=%s" % kv for kv in (env or {}).items()), *words]
+
+
+def record_steps(monkeypatch, *modules) -> list[list[str]]:
+    """Patch the step runners the driver modules hold (``check``,
+    ``check_all``, ``concat``, ``tee_last_line``) to record each step, in
+    ``script_commands``' words, and run nothing; returns the list."""
+    steps = []
+
+    def check(cmd, cwd=None, echo=False, code=None, env=None):
+        steps.append(driver_words(cmd, env))
+
+    def check_all(cmds, jobs=1, cwd=None, code=None, echo=False):
+        for cmd in cmds:
+            check(cmd)
+
+    def concat(paths, out):
+        steps.append(["cat", *paths])
+
+    def tee_last_line(cmd, out, env=None):
+        check(cmd, env=env)
+
+    for module in modules:
+        for name, fn in (("check", check), ("check_all", check_all), ("concat", concat),
+                         ("tee_last_line", tee_last_line)):
+            if hasattr(module, name):
+                monkeypatch.setattr(module, name, fn)
+    return steps
