@@ -39,6 +39,7 @@ from pfann_tpu_torch.index.align_kernel import (
     window_reduce,
     zero_extended,
 )
+from pfann_tpu_torch.utils.profiling import span
 
 DEFAULT_PAD = 32  # supports query windows up to 32 segments (> 10 s default)
 MAX_BATCH = 1024  # filters per dispatch; bounds the [B, n_songs] outputs
@@ -193,6 +194,14 @@ class AlignmentEngine:
         host array or a tensor (one on the engine's device is not copied).
         sub_lens [B] (optional) masks zero filter rows on the alpha path
         only."""
+        return self._dispatch(filters, sub_lens, top1=False)
+
+    def search_top1_device(self, filters) -> list:
+        """Serving fast path: per query only (song, score_sum, t) leave the
+        device.  Returns a list of device-tensor triples per chunk."""
+        return self._dispatch(filters, None, top1=True)
+
+    def _dispatch(self, filters, sub_lens, top1: bool) -> list:
         B, S, _ = filters.shape
         mb = self.max_batch
         outs = []
@@ -200,32 +209,31 @@ class AlignmentEngine:
             chunk = filters[i : i + mb]
             n = chunk.shape[0]
             q_valid = None
-            if self.score_alpha != 0.0:
-                lens = (np.full(n, S, np.int32) if sub_lens is None
-                        else np.asarray(sub_lens[i : i + n]))
-                q_valid = torch.from_numpy(
-                    (np.arange(S)[:, None] < lens[None, :]).astype(np.float32)
-                ).to(self.device)
-            outs.append(alignment_core(
-                self._db, self._queries(chunk), R=self.R, S=S, n_songs=self.n_songs,
-                score_alpha=self.score_alpha, row_valid=self._row_valid,
-                q_valid=q_valid,
-            ))
+            with span("align.upload"):
+                if self.score_alpha != 0.0:
+                    lens = (np.full(n, S, np.int32) if sub_lens is None
+                            else np.asarray(sub_lens[i : i + n]))
+                    q_valid = torch.from_numpy(
+                        (np.arange(S)[:, None] < lens[None, :]).astype(np.float32)
+                    ).to(self.device)
+                q = self._queries(chunk)
+            with span("align.scan"):
+                best, argoff = alignment_core(
+                    self._db, q, R=self.R, S=S, n_songs=self.n_songs,
+                    score_alpha=self.score_alpha, row_valid=self._row_valid,
+                    q_valid=q_valid,
+                )
+                outs.append(_top1(best, argoff, self.pad) if top1 else (best, argoff))
         return outs
-
-    def search_top1_device(self, filters) -> list:
-        """Serving fast path: per query only (song, score_sum, t) leave the
-        device.  Returns a list of device-tensor triples per chunk."""
-        return [_top1(best, argoff, self.pad)
-                for best, argoff in self.search_device(filters)]
 
     def search_top1(self, qpad):
         """Synced top-1 answers (host arrays): (song [B] int32, score_sum
         [B] f32, t [B] f32 in DB-hop units from song start)."""
         outs = self.search_top1_device(qpad)
-        song = np.concatenate([o[0].cpu().numpy() for o in outs])
-        best = np.concatenate([o[1].cpu().numpy() for o in outs]).astype(np.float32)
-        t = np.concatenate([o[2].cpu().numpy() for o in outs])
+        with span("align.fetch"):
+            song = np.concatenate([o[0].cpu().numpy() for o in outs])
+            best = np.concatenate([o[1].cpu().numpy() for o in outs]).astype(np.float32)
+            t = np.concatenate([o[2].cpu().numpy() for o in outs])
         return song, best, t
 
     def search(

@@ -53,6 +53,7 @@ from pfann_tpu_torch.parallel.mesh import local_devices
 from pfann_tpu_torch.parallel.sharded_search import ShardedDatabase
 from pfann_tpu_torch.utils.config import read_file_list
 from pfann_tpu_torch.utils.logging import get_logger
+from pfann_tpu_torch.utils.profiling import span
 
 INDEX_META_NAME = "index_meta.json"
 MODEL_FILE_NAME = "model.msgpack"
@@ -289,6 +290,10 @@ class Database:
         path, as in the JAX package."""
         if not queries:
             return []
+        with span("db.query_top1_batch", n=len(queries)):
+            return self._query_top1_batch(queries)
+
+    def _query_top1_batch(self, queries):
         if self.ntotal == 0:
             return [(-float("inf"), (-1, 0.0))] * len(queries)
         if (self.score_alpha != 0.0
@@ -297,27 +302,30 @@ class Database:
         fsm = self.frame_shift_mul
         B = len(queries)
         scale = self.hop_size / fsm
-        allf, lens = self._filters(queries)
-        if self._sharded is not None:
-            # the sharded top-1 scores sum / S (S the bucketed width; its
-            # rescue gate reads that, as JAX's does); back to mean units
-            val, idx, t = self._sharded.search_top1_rescued(allf)
-            song = self._sharded.flat_to_song(idx)
-            ssum = val * np.float32(allf.shape[1])
-            t = t.astype(np.float32)
-        elif self.engine == "screen":
-            # the rescue gate divides the score sums by the true lengths
-            song, ssum, t = self._align.search_top1(allf, lens)
-        else:
-            song, ssum, t = self._align.search_top1(allf)
-        mean = (ssum / np.maximum(lens, 1)).reshape(B, fsm)
-        song = song.reshape(B, fsm)
-        t_sub = t.reshape(B, fsm) * fsm - np.arange(fsm)[None, :]
-        pick = np.argmax(mean, axis=1)
-        return [
-            (
-                float(mean[i, pick[i]]),
-                (int(song[i, pick[i]]), float(t_sub[i, pick[i]] * scale)),
-            )
-            for i in range(B)
-        ]
+        with span("db.filters"):
+            allf, lens = self._filters(queries)
+        with span("db.engine"):
+            if self._sharded is not None:
+                # the sharded top-1 scores sum / S (S the bucketed width; its
+                # rescue gate reads that, as JAX's does); back to mean units
+                val, idx, t = self._sharded.search_top1_rescued(allf)
+                song = self._sharded.flat_to_song(idx)
+                ssum = val * np.float32(allf.shape[1])
+                t = t.astype(np.float32)
+            elif self.engine == "screen":
+                # the rescue gate divides the score sums by the true lengths
+                song, ssum, t = self._align.search_top1(allf, lens)
+            else:
+                song, ssum, t = self._align.search_top1(allf)
+        with span("db.merge"):
+            mean = (ssum / np.maximum(lens, 1)).reshape(B, fsm)
+            song = song.reshape(B, fsm)
+            t_sub = t.reshape(B, fsm) * fsm - np.arange(fsm)[None, :]
+            pick = np.argmax(mean, axis=1)
+            return [
+                (
+                    float(mean[i, pick[i]]),
+                    (int(song[i, pick[i]]), float(t_sub[i, pick[i]] * scale)),
+                )
+                for i in range(B)
+            ]

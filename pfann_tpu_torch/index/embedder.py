@@ -23,6 +23,7 @@ import torch
 from pfann_tpu_torch.models.fp_network import build_fp_network
 from pfann_tpu_torch.ops.melspec import build_mel_spec_layer
 from pfann_tpu_torch.utils import checkpoint as ckpt
+from pfann_tpu_torch.utils.profiling import span
 
 
 class Embedder:
@@ -107,11 +108,14 @@ class Embedder:
         seg = self.segment_size
         k = seg // hop
         T = L // hop - (k - 1)
-        x = buf.float() / 32768.0 if buf.dtype == torch.int16 else buf
-        hops = x.reshape(B, L // hop, hop)
-        frames = torch.cat([hops[:, i : i + T] for i in range(k)], dim=2)
-        frames = frames - frames.mean(dim=2, keepdim=True)
-        z = self.model(self.mel(frames.reshape(B * T, seg)), norm=True)
+        with span("embedder.melspec"):
+            x = buf.float() / 32768.0 if buf.dtype == torch.int16 else buf
+            hops = x.reshape(B, L // hop, hop)
+            frames = torch.cat([hops[:, i : i + T] for i in range(k)], dim=2)
+            frames = frames - frames.mean(dim=2, keepdim=True)
+            mel = self.mel(frames.reshape(B * T, seg))
+        with span("embedder.encoder"):
+            z = self.model(mel, norm=True)
         return z.reshape(B, T, -1)
 
     def embed_songs_device(
@@ -128,23 +132,27 @@ class Embedder:
         ) if counts else seg
         L = -(-max(need, seg) // seg) * seg  # whole segments
         all_i16 = all(s.dtype == np.int16 for s in signals)
-        buf = np.zeros((len(signals), L), np.int16 if all_i16 else np.float32)
-        for b, s in enumerate(signals):
-            n = min(s.shape[0], L)
-            if all_i16:
-                buf[b, :n] = s[:n]
-            elif s.dtype == np.int16:
-                # a mixed batch rides the f32 carrier: rescale int16 here
-                buf[b, :n] = s[:n].astype(np.float32) / 32768.0
-            else:
-                buf[b, :n] = np.asarray(s[:n], np.float32)
-        return self._songs_fn(torch.from_numpy(buf).to(self.device), hop), list(counts)
+        with span("embedder.pack"):
+            buf = np.zeros((len(signals), L), np.int16 if all_i16 else np.float32)
+            for b, s in enumerate(signals):
+                n = min(s.shape[0], L)
+                if all_i16:
+                    buf[b, :n] = s[:n]
+                elif s.dtype == np.int16:
+                    # a mixed batch rides the f32 carrier: rescale int16 here
+                    buf[b, :n] = s[:n].astype(np.float32) / 32768.0
+                else:
+                    buf[b, :n] = np.asarray(s[:n], np.float32)
+        with span("embedder.upload"):
+            dev = torch.from_numpy(buf).to(self.device)
+        return self._songs_fn(dev, hop), list(counts)
 
     def gather_songs(self, handle) -> list[np.ndarray]:
         """Sync a dispatched packed batch -> per-song [n_i, d] float32."""
         dev, counts = handle
-        z = dev.float().cpu().numpy()
-        return [z[b, : counts[b]] for b in range(len(counts))]
+        with span("embedder.gather"):
+            z = dev.float().cpu().numpy()
+            return [z[b, : counts[b]] for b in range(len(counts))]
 
     def embed_songs(
         self, signals: list[np.ndarray], counts: list[int], hop: int
@@ -155,10 +163,11 @@ class Embedder:
             return []
         G = max(1, self.chunk * 4 // max(max(counts), 1))
         out: list[np.ndarray] = []
-        for j in range(0, len(signals), G):
-            out.extend(self.gather_songs(self.embed_songs_device(
-                signals[j : j + G], counts[j : j + G], hop,
-            )))
+        with span("embedder.embed_songs", n=sum(counts)):
+            for j in range(0, len(signals), G):
+                out.extend(self.gather_songs(self.embed_songs_device(
+                    signals[j : j + G], counts[j : j + G], hop,
+                )))
         return out
 
     def embed_stream(self, dataset, hop: int, num_workers: int = 4,

@@ -72,6 +72,7 @@ from pfann_tpu_torch.index.align import (
 )
 from pfann_tpu_torch.index.align_kernel import QUERY_TILES
 from pfann_tpu_torch.utils.logging import get_logger
+from pfann_tpu_torch.utils.profiling import span
 
 SONG_GROUP = 8  # n_pad multiple (JAX's PALLAS_G): same padding slots as JAX
 # queries per dispatch at most on the CPU, as JAX's XLA path (its kernel
@@ -235,11 +236,13 @@ def screen_core(
     B, S, d = qpad.shape
     R = db3.shape[1]
     # ---- stage 1: the coarse scan, then the top-M cut
-    best_c = coarse_scores(coarse, qpad, k=k, Rc=R // k, n_pad=db3.shape[0])
-    # + 0.0 turns -0.0 into +0.0, so the sort sees equal zeros as ties
-    best_c = torch.where(song_valid[None, :], best_c + 0.0, -torch.inf)
-    vals_c, cand = torch.sort(best_c, dim=1, descending=True, stable=True)
-    vals_c, cand = vals_c[:, :M], cand[:, :M]
+    with span("screen.stage1"):
+        best_c = coarse_scores(coarse, qpad, k=k, Rc=R // k, n_pad=db3.shape[0])
+    with span("screen.sort"):
+        # + 0.0 turns -0.0 into +0.0, so the sort sees equal zeros as ties
+        best_c = torch.where(song_valid[None, :], best_c + 0.0, -torch.inf)
+        vals_c, cand = torch.sort(best_c, dim=1, descending=True, stable=True)
+        vals_c, cand = vals_c[:, :M], cand[:, :M]
 
     stats = None
     if with_stats:
@@ -254,45 +257,46 @@ def screen_core(
 
     # ---- stage 2: exact alignment over the surviving regions, one
     # survivor slot at a time (a [B, R, d] gather, widened to f32)
-    if exact_int8:
-        qq, qscale = quantize_queries_int8_scaled(qpad)
-        qt = qq.float().transpose(1, 2)
-    else:
-        qt = qpad.to(db3.dtype).float().transpose(1, 2)  # [B, d, S]
-    scores = torch.empty(B, M, R, S, dtype=torch.float32, device=qpad.device)
-    for m in range(M):
-        scores[:, m] = torch.bmm(db3[cand[:, m]].float(), qt)
+    with span("screen.stage2"):
+        if exact_int8:
+            qq, qscale = quantize_queries_int8_scaled(qpad)
+            qt = qq.float().transpose(1, 2)
+        else:
+            qt = qpad.to(db3.dtype).float().transpose(1, 2)  # [B, d, S]
+        scores = torch.empty(B, M, R, S, dtype=torch.float32, device=qpad.device)
+        for m in range(M):
+            scores[:, m] = torch.bmm(db3[cand[:, m]].float(), qt)
 
-    if score_alpha != 0.0:
-        hi = pad + counts[cand]  # [B, M] first region row off the song
+        if score_alpha != 0.0:
+            hi = pad + counts[cand]  # [B, M] first region row off the song
 
-        def contrib(i):
-            sl = scores[:, :, i:, i]
-            l2 = 1.0 - sl
-            c = torch.exp(-score_alpha * l2 * l2)
-            row = torch.arange(i, R, device=sl.device)
-            c = c * ((row >= pad) & (row < hi[:, :, None]))
-            if q_valid is not None:
-                c = c * q_valid[:, None, None, i]
-            return c
-    else:
+            def contrib(i):
+                sl = scores[:, :, i:, i]
+                l2 = 1.0 - sl
+                c = torch.exp(-score_alpha * l2 * l2)
+                row = torch.arange(i, R, device=sl.device)
+                c = c * ((row >= pad) & (row < hi[:, :, None]))
+                if q_valid is not None:
+                    c = c * q_valid[:, None, None, i]
+                return c
+        else:
 
-        def contrib(i):
-            return scores[:, :, i:, i]
+            def contrib(i):
+                return scores[:, :, i:, i]
 
-    # window i at offsets >= R - i reads past the region, into the next
-    # region's leading zeros: those terms are exactly 0 and are skipped
-    align = contrib(0).clone()  # [B, M, R]
-    for i in range(1, S):
-        align[:, :, : R - i] += contrib(i)
-    best = align.amax(dim=2)  # raw units: argoff compares against align
-    offs = torch.arange(R, dtype=torch.int32, device=align.device)
-    argoff = torch.where(align >= best[:, :, None], offs, -1).amax(dim=2)
-    if exact_int8:
-        best = best * (qscale * exact_scale)[:, None]
-    # a shard with fewer real songs than M keeps padding slots among its
-    # survivors: they score -inf, so no top-1 takes them
-    best = torch.where(song_valid[cand], best, -torch.inf)
+        # window i at offsets >= R - i reads past the region, into the next
+        # region's leading zeros: those terms are exactly 0 and are skipped
+        align = contrib(0).clone()  # [B, M, R]
+        for i in range(1, S):
+            align[:, :, : R - i] += contrib(i)
+        best = align.amax(dim=2)  # raw units: argoff compares against align
+        offs = torch.arange(R, dtype=torch.int32, device=align.device)
+        argoff = torch.where(align >= best[:, :, None], offs, -1).amax(dim=2)
+        if exact_int8:
+            best = best * (qscale * exact_scale)[:, None]
+        # a shard with fewer real songs than M keeps padding slots among its
+        # survivors: they score -inf, so no top-1 takes them
+        best = torch.where(song_valid[cand], best, -torch.inf)
     if with_stats:
         return cand, best, argoff, stats
     return cand, best, argoff
@@ -471,8 +475,10 @@ class ScreenedAlignmentEngine:
                 else torch.as_tensor(np.asarray(sub_lens), dtype=torch.int64))
         for i in range(0, B, mb):
             rows = slice(i, min(i + mb, B))
-            q = torch.as_tensor(filters[rows], dtype=torch.float32).to(self.device)
-            yield rows, q, lens[rows].to(self.device)
+            with span("screen.upload"):
+                q = torch.as_tensor(filters[rows], dtype=torch.float32).to(self.device)
+                lq = lens[rows].to(self.device)
+            yield rows, q, lq
 
     def _stage12(self, q: torch.Tensor, lens: torch.Tensor, with_stats=False):
         q_valid = None
@@ -528,14 +534,17 @@ class ScreenedAlignmentEngine:
         outs = []
         for _, q, lens in self._chunks(qpad, sub_lens):
             cand, best, argoff = self._stage12(q, lens)
-            m = best.argmax(dim=1, keepdim=True)
-            song = cand.gather(1, m)[:, 0].int()
-            score = best.gather(1, m)[:, 0]
-            t = (argoff.gather(1, m)[:, 0] - self.pad).float()
-            if gate:
-                need = (score / lens.clamp(min=1).float() < self._rescue_tau) & (lens > 0)
-                esc = need.nonzero()[:, 0]  # the chunk's one sync
-                if len(esc):
+            with span("screen.gate", n=0) as g:
+                m = best.argmax(dim=1, keepdim=True)
+                song = cand.gather(1, m)[:, 0].int()
+                score = best.gather(1, m)[:, 0]
+                t = (argoff.gather(1, m)[:, 0] - self.pad).float()
+                if gate:
+                    need = (score / lens.clamp(min=1).float() < self._rescue_tau) & (lens > 0)
+                    esc = need.nonzero()[:, 0]  # the chunk's one sync
+                    g.n = len(esc)
+            if gate and len(esc):
+                with span("screen.stage3", n=len(esc)):
                     self.escalated += len(esc)
                     get_logger().info(
                         "screen top-1 rescue: %d/%d queries below tau=%.3f "
@@ -553,8 +562,9 @@ class ScreenedAlignmentEngine:
         B, S, _ = qpad.shape
         lens = np.full(B, S, np.int32) if sub_lens is None else np.asarray(sub_lens)
         outs = self.search_top1_device(qpad, lens)
-        song, best, t = (np.concatenate([o[j].cpu().numpy() for o in outs])
-                         for j in range(3))
+        with span("screen.fetch"):
+            song, best, t = (np.concatenate([o[j].cpu().numpy() for o in outs])
+                             for j in range(3))
         if self.exact_int8:
             best = self._f32_rescore_winners(qpad, lens, song, t)
         return song, best.astype(np.float32), t

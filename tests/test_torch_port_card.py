@@ -1,7 +1,9 @@
 """The engines and paths that run as torch ops on the card (no align-reduce
 kernel): the score_alpha paths of the exhaustive and screened engines,
 the topk engine, the long-query fallback, the saliency gradient and the
-landmark peak extractor, each on a card against the same code on the CPU.
+landmark peak extractor, each on a card against the same code on the CPU;
+and one traced query an engine, whose kernels (the align-reduce kernel's
+among them) fpbench's reading puts down to the program's spans.
 
 Like tests/test_torch_port_kernel.py this file imports no jax, so it runs
 on a machine with a card and no JAX package:
@@ -335,3 +337,49 @@ def test_augment_on_card_matches_cpu(cuda_device):
                             draws).cpu()
     assert out["cuda"].shape == (B, 2, 256, 32)
     np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(), rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["align", "screen"])
+def test_traced_query_puts_every_kernel_under_a_span(cuda_device, tmp_path, engine):
+    """One traced ``query_top1_batch`` an engine: every kernel and copy of
+    the window was launched inside a program span (fpbench's reading of
+    the profiler), the kernel inside the scan or the screen's stage 3, the
+    records start within 50 us of their profiler ranges at the median, and
+    the answers are the untraced ones."""
+    from fpbench import program_trace
+    from pfann_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(15)
+    emb, counts = _corpus(rng, 40, 32)
+    root = str(tmp_path)
+    emb.tofile(os.path.join(root, "embeddings"))
+    counts.astype(np.int32).tofile(os.path.join(root, "landmarkKey"))
+    with open(os.path.join(root, "songList.txt"), "w") as f:
+        f.writelines("s%d.wav\n" % i for i in range(len(counts)))
+    write_index_meta(root, d=32)
+    params = {"top_k": 5, "screen": engine == "screen", "screen_top_m": 2}
+    db = Database(root, params, 0.5, cuda_device)
+    q, _ = _crops(rng, emb, counts, 8, 12)
+    noise = rng.standard_normal((12, 32)).astype(np.float32)
+    queries = list(q) + [noise / np.linalg.norm(noise, axis=1, keepdims=True)]
+    want = db.query_top1_batch(queries)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("window"):
+                got = db.query_top1_batch(queries)
+                torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    assert got == want
+    pt = program_trace.read(prof, profiling.records())
+    assert pt.device_by_span and program_trace.UNATTRIBUTED not in pt.device_by_span
+    if engine == "screen":
+        assert "align_reduce" in " ".join(pt.kernels_by_span["screen.stage3"])
+    else:
+        assert "align_reduce" in " ".join(pt.kernels_by_span["align.scan"])
+    median_us, _ = program_trace.clock_gap_us(pt)
+    assert median_us <= 50.0

@@ -12,8 +12,8 @@ Training: the data-parallel step as 2 gloo ranks (processes) against the
 JAX step on the 8-device mesh and the port's one-process step (loss rtol
 1e-5, grads rtol 3e-3 atol 1e-4, JAX's tolerances), and the ``--dp`` CLI.
 
-``utils/profiling.py``: the stage-timer line, the trace file, the
-annotations.
+``utils/profiling.py``: the trace file, a span's range in it and its
+summary (the span tracer itself: tests/test_torch_port_tracing.py).
 """
 
 import json
@@ -609,38 +609,24 @@ def test_loader_parts_are_the_global_batch(pipeline_root, tmp_path, device_corpu
 
 # ------------------------------------------------------------ profiling
 def test_profiling_helpers(tmp_path):
-    import logging
-    import re
-
     from pfann_tpu_torch.utils import profiling
-    from pfann_tpu_torch.utils.logging import get_logger
-    from tools.stat import aggregate
 
-    log = tmp_path / "stages.log"
-    handler = logging.FileHandler(log)
-    handler.setFormatter(logging.Formatter("[%(asctime)s] [%(levelname)s] %(message)s"))
-    logger = get_logger()
-    level = logger.level
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
+    profiling.enable()
     try:
-        with profiling.stage_timer("search"):
-            pass
-        with profiling.stage_timer("search"):
+        with profiling.device_trace(str(tmp_path / "prof")) as prof:
+            with profiling.span("pfann_region", n=2):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("pfann_region"):
             pass
     finally:
-        logger.removeHandler(handler)
-        logger.setLevel(level)
-        handler.close()
-    assert re.search(r"\] search \d+\.\d{6}s$", log.read_text().splitlines()[0])
-    assert list(aggregate(str(log))) == ["search"]
-    with profiling.device_trace(str(tmp_path / "prof")) as prof:
-        with profiling.annotate("pfann_region"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
+        profiling.disable()
     names = [e.key for e in prof.key_averages()]
     assert "pfann_region" in names
     traces = os.listdir(tmp_path / "prof")
     assert len(traces) == 1 and "pfann_region" in open(tmp_path / "prof" / traces[0]).read()
+    summ = profiling.summary()
+    assert list(summ) == ["pfann_region"]
+    assert summ["pfann_region"]["calls"] == 2 and summ["pfann_region"]["n"] == 2
     with profiling.device_trace(str(tmp_path / "off"), enabled=False) as prof:
         assert prof is None
     assert not os.path.exists(tmp_path / "off")
