@@ -60,7 +60,7 @@ Phases, in order; any failure raises and the script exits nonzero:
      (f1) db_dtype float32 on the exhaustive engine: 1,024 and 32 noisy
          queries of 19 rows through query_top1_batch, one f32 launch each,
          recall 1024/1024 and 32/32; at both, the f32 launch the path
-         makes (the Database's filters: 19 rows padded to 24 windows)
+         makes (the Database's top-1 filters: 19 windows, unpadded)
          held to its plain version and timed;
      (d) score_alpha 1.0 on the screened engine on phase 6's corpus, 256
          clean queries, recall 256/256, answers equal the exhaustive
@@ -953,7 +953,7 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
 
     # (f1) db_dtype float32 on the exhaustive engine: the f32 kernel at
     # full width, one launch per batch, held to its plain version and timed
-    # on the filters the Database launches (19 rows padded to 24 windows)
+    # on the filters the Database's top-1 path launches (19 windows)
     qf, src, off = crops(emb4, 75, 1024, 19)
     f32 = {}
     db = None
@@ -967,7 +967,7 @@ def rest_of_serving(dev, card, tmp, emb4, big, p5):
         print("  (f1) db_dtype float32, exhaustive engine (%.1f MB resident), %d noisy "
               "queries: recall %d/%d, offsets %d/%d, f32 launches 1; %.3f ms per batch  %s"
               % (e._db.numel() * 4 / 1e6, B, B, B, B, B, ms_f, card), flush=True)
-        filters, _ = db._filters(list(qf[:B]))
+        filters, _ = db._filters(list(qf[:B]), bucket=False)
         q = torch.from_numpy(filters).to(dev)
         f32[B] = held_launch("f1 B=%d" % B, e._db, q, e.R, q.shape[1], e.n_songs, card,
                              conv_reps=3)

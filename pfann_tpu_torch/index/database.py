@@ -20,6 +20,12 @@ row, then the sequence rerank, ``index/search.py``).  A query with more
 windows than the fast engines' layout pad is served by the topk engine,
 with one warning per length, as in the JAX package.
 
+A batch's filters are zero-padded to one width, rounded up to a multiple
+of 8 windows as in the JAX package (``bucket_windows``), except on the
+single-card top-1 path (``query_top1_batch`` on the align or screen
+engine), which launches at the batch's longest filter: the answers are
+the same, and ``window_rows_trimmed`` counts the rows left out.
+
 ``sharded: true`` with the align or screen engine shards the songs over
 every visible card when more than one is visible
 (``parallel/sharded_search.py``, the JAX package's mesh over all devices);
@@ -141,6 +147,9 @@ class Database:
         self._topk = None  # built at first use (the fast engines' fallback)
         self._fallback_logged: set = set()
         self._sharded = None
+        # zero window rows the top-1 path did not launch: the bucketed
+        # width less the batch's longest filter, times the filters
+        self.window_rows_trimmed = 0
         if self.params.get("sharded", False) and engine != "topk" and devices:
             self._sharded = ShardedDatabase(
                 emb, counts, devices, engine=engine, db_dtype=dtype,
@@ -212,9 +221,11 @@ class Database:
     def _max_windows(self) -> int:
         return self._sharded.pad if self._sharded is not None else self._align.max_query_windows()
 
-    def _filters(self, queries):
-        """Per-shift filters of every query, zero-padded to one bucketed
-        width: (filters [B*fsm, S, d], sub_lens [B*fsm])."""
+    def _filters(self, queries, bucket: bool = True):
+        """Per-shift filters of every query, zero-padded to one width:
+        (filters [B*fsm, S, d], sub_lens [B*fsm]).  S is the longest
+        filter's, rounded up by ``bucket_windows`` unless ``bucket`` is
+        False."""
         fsm = self.frame_shift_mul
         max_w = self._max_windows()
         filters, sub_lens = [], []
@@ -222,7 +233,9 @@ class Database:
             f, sl, _ = queries_to_filters(q, fsm, max_w)
             filters.append(f)
             sub_lens.append(sl)
-        S_max = bucket_windows(max(f.shape[1] for f in filters), max_w)
+        S_max = max(f.shape[1] for f in filters)
+        if bucket:
+            S_max = bucket_windows(S_max, max_w)
         allf = np.zeros((len(queries) * fsm, S_max, self.d), np.float32)
         for i, f in enumerate(filters):
             allf[i * fsm : (i + 1) * fsm, : f.shape[1]] = f
@@ -302,8 +315,16 @@ class Database:
         fsm = self.frame_shift_mul
         B = len(queries)
         scale = self.hop_size / fsm
+        # the single-card engines take the longest filter's width: the
+        # kernel and stage 2 pay for every window row, zero or not, and the
+        # zero rows past it add exact zeros to every sum
+        trim = self._sharded is None
         with span("db.filters"):
-            allf, lens = self._filters(queries)
+            allf, lens = self._filters(queries, bucket=not trim)
+        if trim:
+            S = allf.shape[1]
+            self.window_rows_trimmed += (
+                bucket_windows(S, self._max_windows()) - S) * allf.shape[0]
         with span("db.engine"):
             if self._sharded is not None:
                 # the sharded top-1 scores sum / S (S the bucketed width; its

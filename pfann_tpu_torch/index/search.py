@@ -40,7 +40,9 @@ import torch
 
 def bucket_windows(s: int, cap: int) -> int:
     """Round the filter window count up to a multiple of 8 (capped at the
-    layout pad) — zero filter rows score zero, so padding S is free."""
+    layout pad), the JAX package's widths: zero filter rows score zero, so
+    padding S changes no answer, but the card pays for every row, and the
+    single-card top-1 path (``Database``) launches at the unpadded width."""
     return min(-(-s // 8) * 8, max(cap, s))
 
 

@@ -3,7 +3,10 @@ kernel): the score_alpha paths of the exhaustive and screened engines,
 the topk engine, the long-query fallback, the saliency gradient and the
 landmark peak extractor, each on a card against the same code on the CPU;
 and one traced query an engine, whose kernels (the align-reduce kernel's
-among them) fpbench's reading puts down to the program's spans.
+among them) fpbench's reading puts down to the program's spans; and the
+single-card top-1 path at the benchmark's d = 64 shapes, launched at the
+queries' own 19 windows against the bucketed 24, with the kernel at
+stage 3's shape held to the plain version on the CPU.
 
 Like tests/test_torch_port_kernel.py this file imports no jax, so it runs
 on a machine with a card and no JAX package:
@@ -29,10 +32,10 @@ import torch
 
 from pfann_tpu_torch.index import align_kernel
 from pfann_tpu_torch.index.align import AlignmentEngine
-from pfann_tpu_torch.index.align_kernel import align_reduce
+from pfann_tpu_torch.index.align_kernel import align_reduce, align_reduce_reference
 from pfann_tpu_torch.index.database import Database, write_index_meta
 from pfann_tpu_torch.index.embedder import Embedder
-from pfann_tpu_torch.index.screen import ScreenedAlignmentEngine
+from pfann_tpu_torch.index.screen import ScreenedAlignmentEngine, build_screen_layout
 from pfann_tpu_torch.index.search import TopkEngine
 from pfann_tpu_torch.models.fp_network import build_fp_network
 from pfann_tpu_torch.utils.checkpoint import save_model
@@ -67,8 +70,12 @@ def cuda_device(monkeypatch):
 
 def _corpus(rng, n_songs, d, lo=20, hi=60):
     counts = rng.integers(lo, hi, size=n_songs)
+    return _corpus_rows(rng, counts, d), counts
+
+
+def _corpus_rows(rng, counts, d):
     emb = rng.standard_normal((int(counts.sum()), d)).astype(np.float32)
-    return emb / np.linalg.norm(emb, axis=1, keepdims=True), counts
+    return emb / np.linalg.norm(emb, axis=1, keepdims=True)
 
 
 def _crops(rng, emb, counts, n, S, noise=0.1):
@@ -383,3 +390,84 @@ def test_traced_query_puts_every_kernel_under_a_span(cuda_device, tmp_path, engi
         assert "align_reduce" in " ".join(pt.kernels_by_span["align.scan"])
     median_us, _ = program_trace.clock_gap_us(pt)
     assert median_us <= 50.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["align", "screen"])
+def test_trimmed_top1_on_card(cuda_device, tmp_path, monkeypatch, engine):
+    """One ``query_top1_batch`` an engine at d = 64 with 19-row queries, 51
+    of them noise that the screen escalates: every launch takes the
+    queries' 19 windows (stage 1 its 5 collapsed rows), not the bucketed 24
+    (6), and the answers equal the bucketed launches' (S*d 1,216 and 1,536
+    both sum in one chain); the screen's stage 3 keeps its query tile
+    resident."""
+    rng = np.random.default_rng(19)
+    counts = rng.integers(60, 121, size=300)
+    counts[0] = 120  # R = 152 exhaustive, 160 screened, as in the benchmark
+    emb = _corpus_rows(rng, counts, 64)
+    root = str(tmp_path)
+    emb.tofile(os.path.join(root, "embeddings"))
+    counts.astype(np.int32).tofile(os.path.join(root, "landmarkKey"))
+    with open(os.path.join(root, "songList.txt"), "w") as f:
+        f.writelines("s%d.wav\n" % i for i in range(len(counts)))
+    write_index_meta(root, d=64)
+    db = Database(root, {"top_k": 5, "screen": engine == "screen", "screen_top_m": 8}, 0.5,
+                  cuda_device)
+    q, src = _crops(rng, emb, counts, 200, 19)
+    noise = rng.standard_normal((51, 19, 64)).astype(np.float32)
+    queries = list(q) + list(noise / np.linalg.norm(noise, axis=2, keepdims=True))
+    plans = []
+    real = align_kernel.tile_plan
+
+    def recorded(*a):
+        plans.append((a, real(*a)))
+        return plans[-1][1]
+
+    monkeypatch.setattr(align_kernel, "tile_plan", recorded)
+    got = db.query_top1_batch(queries)
+    trimmed = plans[:]
+    filters = Database._filters
+    monkeypatch.setattr(db, "_filters", lambda qs, bucket=True: filters(db, qs))
+    want = db.query_top1_batch(queries)
+    bucketed = plans[len(trimmed):]
+    assert got == want
+    assert [song for _, (song, _) in got[:200]] == list(src)
+    assert db.window_rows_trimmed == 5 * len(queries)
+    if engine == "align":
+        assert [a[:2] for a, _ in trimmed] == [(251, 19)]
+        assert [a[:2] for a, _ in bucketed] == [(251, 24)]
+        return
+    assert db._align.escalated == 2 * 51
+    assert [a[:2] for a, _ in trimmed] == [(251, 5), (51, 19)]
+    assert [a[:2] for a, _ in bucketed] == [(251, 6), (51, 24)]
+    stage3 = trimmed[1][1]
+    assert stage3["resident"] and stage3["qs"] == 19 and not stage3["rowsum"]
+    assert not bucketed[1][1]["resident"]
+
+
+@pytest.mark.cuda
+def test_kernel_at_stage3_trimmed_shape_on_card(cuda_device):
+    """The kernel at the benchmark's stage-3 shape, B = 51, S = 19, d = 64,
+    R = 160 (the screened layout of 120-row songs), its query tile
+    resident: best within BEST_ATOL of the plain version's on the CPU, and
+    the score at each offset the kernel picks within BEST_ATOL of it."""
+    rng = np.random.default_rng(51)
+    counts = rng.integers(60, 121, size=300)
+    counts[0] = 120
+    db3, _, R, _, n_pad = build_screen_layout(_corpus_rows(rng, counts, 64), counts, pad=32,
+                                              k=4, d=64)
+    B, S, d = 51, 19, 64
+    assert R == 160 and align_kernel.tile_plan(B, S, d, 2, R, n_pad)["resident"]
+    qs = rng.standard_normal((B, S, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=2, keepdims=True)
+    dbt = torch.from_numpy(db3.reshape(-1, d)).to(cuda_device, torch.bfloat16)
+    qt = torch.from_numpy(qs).to(cuda_device, torch.bfloat16)
+    before = align_reduce.launches
+    kb, ko = (x.cpu().numpy() for x in align_reduce(dbt, qt, R, S, n_pad))
+    assert align_reduce.launches == before + 1
+    pb, _ = (x.numpy() for x in align_reduce_reference(dbt.cpu(), qt.cpu(), R, S, n_pad))
+    np.testing.assert_allclose(kb, pb, rtol=0, atol=BEST_ATOL)
+    rows = np.concatenate([dbt.float().cpu().numpy(), np.zeros((S, d), np.float32)])
+    idx = (np.arange(n_pad) * R)[None, :, None] + ko[:, :, None] + np.arange(S)
+    at = np.einsum("bnsd,bsd->bn", rows[idx], qt.float().cpu().numpy())
+    np.testing.assert_allclose(at, pb, rtol=0, atol=BEST_ATOL)

@@ -9,10 +9,14 @@ A development tool of pfann_tpu_torch, kept outside the package: it swaps
 ``align_kernel.tile_plan`` for a plan with some fields overridden while it
 times a variant, and restores it after.
 
-Shapes: the exhaustive engine of chip_smoke.py phase 4 (10,000 songs,
-R = 152, bf16, d = 128, S = 19, B = 1024 and 32), the screened engine's
-stage 1 of phase 6 (100,000 songs, Rc = 40, int8, Sc = 5, B = 1024) and
-its stage 3 (100,000 songs, R = 160, bf16, S = 19, B = 256).  In f32
+Shapes (d = 128 unless named): the exhaustive engine of chip_smoke.py
+phase 4 (10,000 songs, R = 152, bf16, S = 19, B = 1024 and 32), the
+screened engine's stage 1 of phase 6 (100,000 songs, Rc = 40, int8,
+Sc = 5, B = 1024) and its stage 3 (100,000 songs, R = 160, bf16, S = 19,
+B = 256); the benchmark's d = 64 screen over 100,000 songs (fpbench cell
+d64-100k-emb-noisy): stage 3 on its ~51 escalated queries (R = 160,
+S = 24 as the bucketed filters had it, S = 19 as the top-1 path launches)
+and stage 1 on a batch of 256 (Rc = 40, Sc = 6 and 5).  In f32
 (``db_dtype: float32``): phase 3's shapes (1,000 songs; R = 152, S = 19,
 B = 1, 100 and 1024; R = 248, S = 119, B = 1024), f1 (phase 4's corpus
 at B = 1024 and 32, S = 24: the Database pads 19-row queries to 24
@@ -35,7 +39,10 @@ DIR`` is the before/after of two trees in one call: the default plans of
 phase 4 (B = 1024 and 32), stage 1 and stage 3 from DIR, from this tree,
 from this tree and from DIR again, each in a process of its own.  Data
 are random, made on the card from a seed.  Prints one line per (shape,
-variant) with the card's name and power limit, and writes them as JSON.
+variant) with the card's name and power limit, the launch's bound (the
+larger of its operations at the dtype's dense peak and its bytes, the
+layout and queries in and the per-song outputs out, at HBM3's) and the
+share of it the time reaches, and writes them as JSON.
 """
 
 from __future__ import annotations
@@ -61,25 +68,34 @@ def _import(root):
     return align_kernel
 
 
-SHAPES = [  # name, dtype, n_songs, R, S, B
-    ("phase4 bf16 B=1024", "bfloat16", 10_000, 152, 19, 1024),
-    ("phase4 bf16 B=32", "bfloat16", 10_000, 152, 19, 32),
-    ("stage3 bf16 B=256", "bfloat16", 100_000, 160, 19, 256),
-    ("stage1 int8 B=1024", "int8", 100_000, 40, 5, 1024),
-    ("phase3 f32 B=1", "float32", 1_000, 152, 19, 1),
-    ("phase3 f32 B=100", "float32", 1_000, 152, 19, 100),
-    ("phase3 f32 B=1024", "float32", 1_000, 152, 19, 1024),
-    ("phase3 f32 S=119 B=1024", "float32", 1_000, 248, 119, 1024),
-    ("f1 f32 B=1024", "float32", 10_000, 152, 24, 1024),
-    ("f1 f32 B=32", "float32", 10_000, 152, 24, 32),
-    ("f1 f32 B=1024 S=19", "float32", 10_000, 152, 19, 1024),
-    ("f2 f32 stage1 B=1024", "float32", 100_000, 40, 5, 1024),
-    ("f3 f32 stage3 B=256", "float32", 100_000, 160, 19, 256),
+SHAPES = [  # name, dtype, n_songs, R, S, B, d
+    ("phase4 bf16 B=1024", "bfloat16", 10_000, 152, 19, 1024, 128),
+    ("phase4 bf16 B=32", "bfloat16", 10_000, 152, 19, 32, 128),
+    ("stage3 bf16 B=256", "bfloat16", 100_000, 160, 19, 256, 128),
+    ("stage1 int8 B=1024", "int8", 100_000, 40, 5, 1024, 128),
+    ("stage3 bf16 d=64 B=51 S=24", "bfloat16", 100_000, 160, 24, 51, 64),
+    ("stage3 bf16 d=64 B=51 S=19", "bfloat16", 100_000, 160, 19, 51, 64),
+    ("stage1 bf16 d=64 B=256 Sc=6", "bfloat16", 100_000, 40, 6, 256, 64),
+    ("stage1 bf16 d=64 B=256 Sc=5", "bfloat16", 100_000, 40, 5, 256, 64),
+    ("phase3 f32 B=1", "float32", 1_000, 152, 19, 1, 128),
+    ("phase3 f32 B=100", "float32", 1_000, 152, 19, 100, 128),
+    ("phase3 f32 B=1024", "float32", 1_000, 152, 19, 1024, 128),
+    ("phase3 f32 S=119 B=1024", "float32", 1_000, 248, 119, 1024, 128),
+    ("f1 f32 B=1024", "float32", 10_000, 152, 24, 1024, 128),
+    ("f1 f32 B=32", "float32", 10_000, 152, 24, 32, 128),
+    ("f1 f32 B=1024 S=19", "float32", 10_000, 152, 19, 1024, 128),
+    ("f2 f32 stage1 B=1024", "float32", 100_000, 40, 5, 1024, 128),
+    ("f3 f32 stage3 B=256", "float32", 100_000, 160, 19, 256, 128),
 ]
+# dense peaks of one H100 SXM (NVIDIA's data sheet): bf16 and int8 on the
+# tensor cores, f32 FFMA on the CUDA cores; bytes a second of HBM3
+PEAK_OPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+HBM_BYTES_S = 3.35e12
 # bf16/int8: overrides of wgmma_plan (config = (rowsum, NWG, MT, ping-pong,
 # blocks per SM))
 VARIANTS = {
-    "bfloat16": [{}, {"qs": 2}, {"tn": 64}, {"config": (False, 2, 1, True, 1), "tn": 64},
+    "bfloat16": [{}, {"qs": 2}, {"qs": 4}, {"tn": 32}, {"tn": 64}, {"tn": 128},
+                 {"config": (False, 2, 1, True, 1), "tn": 64},
                  {"config": (True, 2, 1, False, 1)}],
     "int8": [{}, {"tn": 32}, {"qs": 4}, {"config": (False, 2, 1, True, 1)},
              {"config": (False, 2, 1, False, 1), "tn": 128},
@@ -87,6 +103,18 @@ VARIANTS = {
 }
 # f32 at d = 128 never fits two A stages in its 256-row subtiles
 F32_VARIANTS = [{}, {"tn": 32}, {"G": 5}, {"G": 2}, {"G": 1}]
+
+
+def bound_ms(dtype: str, itemsize: int, n_songs: int, R: int, S: int, B: int,
+             d: int) -> float:
+    """The least time of one launch: its operations (2 x S x d x B a layout
+    row) at the dtype's peak, or its bytes (the layout and the queries
+    read once, best and argoff written) at HBM3's rate, whichever is
+    longer."""
+    N = n_songs * R
+    ops = 2.0 * N * d * S * B
+    nbytes = (N + B * S) * d * itemsize + B * n_songs * 8
+    return 1e3 * max(ops / PEAK_OPS[dtype], nbytes / HBM_BYTES_S)
 
 
 def _time_ms(torch, fn, reps):
@@ -141,8 +169,7 @@ def run(args) -> list:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, base_plan = [], ak.tile_plan
-    d = 128
-    for name, dt, n_songs, R, S, B in SHAPES:
+    for name, dt, n_songs, R, S, B, d in SHAPES:
         if shapes and not any(x in name for x in shapes):
             continue
         dtype = getattr(torch, dt)
@@ -177,12 +204,14 @@ def run(args) -> list:
             finally:
                 ak.tile_plan = base_plan
             shown = plan and {k: v for k, v in plan.items() if k not in ("grid", "threads")}
-            row = dict(shape=name, variant=over or "plan", ms=ms, plan=shown, root=args.root,
-                       tops=2.0 * N * d * S * B / ms / 1e9, card=card)
+            bound = bound_ms(dt, db.element_size(), n_songs, R, S, B, d)
+            row = dict(shape=name, d=d, variant=over or "plan", ms=ms, plan=shown,
+                       root=args.root, tops=2.0 * N * d * S * B / ms / 1e9, bound_ms=bound,
+                       share=bound / ms, card=card)
             rows.append(row)
-            print("%-24s %-34s %9.3f ms  %7.1f T(FL)OP/s  %s  %s  [%s]" % (
-                name, json.dumps(over) if over else "plan", ms, row["tops"], args.root,
-                shown or "", card), flush=True)
+            print("%-28s %-34s %9.3f ms  %7.1f T(FL)OP/s  bound %.4f ms (%.1f%%)  %s  %s  [%s]"
+                  % (name, json.dumps(over) if over else "plan", ms, row["tops"], bound,
+                     100.0 * bound / ms, args.root, shown or "", card), flush=True)
         del db, q, want
         torch.cuda.empty_cache()
     return rows
