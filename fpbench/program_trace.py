@@ -14,11 +14,13 @@ window (the benchmark's ``window`` range):
   threads are open at once, the one that opened last takes it: the
   benchmark's loop runs on one thread;
 - each idle gap of the card to the innermost program span open at the
-  gap's midpoint.
+  gap's midpoint; where none is, to the benchmark's span open then
+  (``embed``, ``search``), or to the harness's own host time.
 
-What it cannot put down (no runtime call, no span open) is
+Device work it cannot put down (no runtime call, no span open) is
 ``UNATTRIBUTED``.  Nothing here imports the program: a run that has no
-program spans reads as all unattributed.
+program spans reads as all unattributed, and its gaps are named as
+``fpbench.trace`` names them.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import statistics
 import torch
 
 from fpbench import flops
-from fpbench.trace import DEVICE_ACTIVITIES, TOP, WINDOW, _union
+from fpbench.trace import DEVICE_ACTIVITIES, HOST_IDLE, TOP, WINDOW, _union
 
 UNATTRIBUTED = "unattributed"
 # the benchmark's own spans around its calls into the program
@@ -49,7 +51,9 @@ class ProgramTrace:
     records: list  # the program's records (profiling.Record), as given
     device_by_span: dict  # span name -> device seconds launched inside it
     kernels_by_span: dict  # span name -> {kernel or copy name: device seconds}
-    idle_by_span: dict  # span name -> idle seconds of the window under it
+    # span name (the benchmark's or the harness's where no program span
+    # is open) -> idle seconds of the window under it
+    idle_by_span: dict
     idle_gaps: list  # the TOP (span name, seconds) longest idle gaps
     # benchmark span -> {first part of the program span's name: device seconds}
     device_by_bench_span: dict
@@ -145,6 +149,13 @@ def read_events(events, recs: list) -> ProgramTrace:
         j = bisect.bisect_right(bench_starts, t) - 1
         return bench[j][2] if j >= 0 and bench[j][1] > t else UNATTRIBUTED
 
+    def gap_name(t):
+        i = spans.at(t)
+        if i >= 0:
+            return recs[i].name
+        b = bench_at(t)
+        return HOST_IDLE if b == UNATTRIBUTED else b
+
     device_by = collections.Counter()
     kernels_by = collections.defaultdict(collections.Counter)
     by_bench = collections.defaultdict(collections.Counter)
@@ -166,7 +177,7 @@ def read_events(events, recs: list) -> ProgramTrace:
     prev = w0
     for s, e in _union(inside) + [[w1, w1]]:
         if s > prev:
-            gaps_named.append((name_of(spans.at((prev + s) // 2)), (s - prev) / 1e9))
+            gaps_named.append((gap_name((prev + s) // 2), (s - prev) / 1e9))
             idle_by[gaps_named[-1][0]] += gaps_named[-1][1]
         prev = max(prev, e)
     gaps = []
@@ -213,8 +224,9 @@ def _calls(pt: ProgramTrace, name: str) -> list:
 
 def device_ms(pt: ProgramTrace | None, name: str, batches: int):
     """Device ms a batch of the kernels and copies launched inside the
-    span ``name``; None where the span never ran."""
-    if pt is None or not batches or not _calls(pt, name):
+    span ``name``; None where the span never ran or the window saw no
+    device work (a run without a card)."""
+    if pt is None or not batches or not pt.device_by_span or not _calls(pt, name):
         return None
     return 1e3 * pt.device_by_span.get(name, 0.0) / batches
 
@@ -248,7 +260,8 @@ def stage3_roofline(pt: ProgramTrace | None, cfg: dict, tr: dict):
 
 def host_prep_idle_pct(pt: ProgramTrace | None):
     """100 x the window's idle seconds under the host's preparation spans
-    over the window's seconds; None where the program recorded no span."""
-    if pt is None or not pt.records or pt.window_s <= 0:
+    over the window's seconds; None where the program recorded no span or
+    the window saw no device work."""
+    if pt is None or not pt.records or not pt.device_by_span or pt.window_s <= 0:
         return None
     return 100.0 * sum(pt.idle_by_span.get(n, 0.0) for n in HOST_PREP_SPANS) / pt.window_s

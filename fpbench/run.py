@@ -15,7 +15,11 @@ warms up on the cell's shapes, then drives a closed loop for ``--seconds``:
 one batch in flight, the next sent when the previous batch's top-1 answers
 are on the host.  Audio queries go through ``Embedder.embed_songs`` and
 ``Database.query_top1_batch``, fingerprint queries through the latter
-alone (the body of ``matcher --top1``'s flush).  Once the window has
+alone (the body of ``matcher --top1``'s flush).  Under ``--trace 1`` the
+window runs under ``torch.profiler`` with the program's own spans
+recording (``pfann_tpu_torch.utils.profiling``), and
+``fpbench/program_trace.py`` puts the card's work and idle time down to
+them; ``--trace 0`` records no span.  Once the window has
 closed and the program's state is freed, ``fpbench/reference/`` works the
 checked answers out again in float32; the last line of standard output is
 the result, the last lines of standard error each number compared beside
@@ -44,7 +48,7 @@ import traceback  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from fpbench import generate  # noqa: E402
+from fpbench import generate, program_trace  # noqa: E402
 from fpbench.check import compare  # noqa: E402
 from fpbench.trace import WINDOW, Spans, read_trace  # noqa: E402
 
@@ -84,6 +88,9 @@ class Reading:
     launches: int  # align-reduce launches in the window
     escalated: int | None  # queries the screen's stage 3 rescored
     trace: object | None  # fpbench.trace.Trace of a --trace 1 window
+    # fpbench.program_trace.ProgramTrace of a --trace 1 window, where the
+    # program records spans
+    program: object | None = None
 
 
 def load_json(path: str) -> dict:
@@ -191,6 +198,16 @@ def write_db(root: str, cfg: dict, inputs: generate.Inputs, n_src: int, device) 
     return sec
 
 
+def program_tracer():
+    """The program's span recorder (``pfann_tpu_torch.utils.profiling``),
+    or None where the program has none."""
+    try:
+        from pfann_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    return profiling if hasattr(profiling, "enable") else None
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -276,30 +293,37 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     esc0 = getattr(screen, "escalated", None)
     launches0 = align_kernel.align_reduce.launches
     prof = None
+    tracer = program_tracer() if trace else None
     if trace:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
+        if tracer is not None:
+            tracer.enable()
     lat, got, failed = [], [], 0
     t_first = time.perf_counter()
     setup_s = time.time() - t_start
     deadline = t_first + seconds
     t_done = t_first
-    with (torch.profiler.record_function(WINDOW) if trace else contextlib.nullcontext()):
-        while True:
-            t0 = time.perf_counter()
-            if t0 >= deadline:
-                break
-            idx, song, tsec, score = serve()
-            t_done = time.perf_counter()
-            lat.append(t_done - t0)
-            failed += int((song < 0).sum())
-            got.append((idx, song, tsec, score))
-        sync(device)
-    if prof is not None:
-        prof.__exit__(None, None, None)
+    try:
+        with (torch.profiler.record_function(WINDOW) if trace else contextlib.nullcontext()):
+            while True:
+                t0 = time.perf_counter()
+                if t0 >= deadline:
+                    break
+                idx, song, tsec, score = serve()
+                t_done = time.perf_counter()
+                lat.append(t_done - t0)
+                failed += int((song < 0).sum())
+                got.append((idx, song, tsec, score))
+            sync(device)
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        if tracer is not None:
+            tracer.disable()
     window_s = t_done - t_first
     launches = align_kernel.align_reduce.launches - launches0
     escalated = None if esc0 is None else screen.escalated - esc0
@@ -312,7 +336,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     answers = {k: np.concatenate([g[j] for g in got])
                for j, k in enumerate(("idx", "song", "time_s", "score"))}
-    tr_read = read_trace(prof) if prof is not None else None
+    tr_read = program = None
+    t = time.perf_counter()
+    if prof is not None:
+        records = tracer.records() if tracer is not None else []
+        tr_read = read_trace(prof, {r.name for r in records})
+        if tracer is not None:
+            program = program_trace.read(prof, records)
+    read_s = time.perf_counter() - t
     del prof
     check = compare(cfg, tr, inputs, answers, device, cell.limits, control=control)
     hits = hit_share(cfg, inputs, answers)
@@ -320,7 +351,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         cell=cell, engine=engine, setup_s=setup_s, window_s=window_s, latencies=lat,
         batches=len(lat), attempted=len(lat) * B, failed=failed, segments=segments,
         spans=dict(spans.seconds), launches=launches, escalated=escalated,
-        trace=tr_read,
+        trace=tr_read, program=program,
     )
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
@@ -344,7 +375,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if tr_read is not None:
         dev["busy_s"] = tr_read.busy_s
         dev["window_s"] = tr_read.window_s
-        out["breakdown"] = {"device_ops": tr_read.device_ops, "idle_gaps": tr_read.idle_gaps}
+        # idle gaps by the program's span where it recorded them
+        gaps = (program if program is not None else tr_read).idle_gaps
+        out["breakdown"] = {"device_ops": tr_read.device_ops, "idle_gaps": gaps}
     info = {
         "cell": cell.name, "seed": seed, "engine": engine, "setup": setup,
         "batches": len(lat), "batch_errors": errors, "hit_share": hits,
@@ -352,8 +385,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         "checked": check["checked"], "components": check["components"],
     }
     if tr_read is not None:
+        info["trace_read_s"] = read_s
         info["idle_by_span"] = tr_read.idle_by_span
         info["device_activities"] = tr_read.activities
+    if program is not None:
+        info["program_spans"] = program_trace.span_table(tracer.summary(program.records),
+                                                         program)
+        info["idle_by_program_span"] = program.idle_by_span
+        info["program_dropped"] = tracer.dropped()
+        # device seconds launched outside every program span
+        info["program_unattributed_s"] = program.device_by_span.get(
+            program_trace.UNATTRIBUTED, 0.0)
     if control:
         info["control"] = check["control"]
     out["info"] = info

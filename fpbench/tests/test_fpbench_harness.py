@@ -132,6 +132,10 @@ def test_last_line(traffic, trace, capsys):
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
         assert "search_ms" in out["metrics"]
         assert ("embed_ms" in out["metrics"]) == (traffic == "tiny-audio")
+        # the program's spans: host times read here, device times only
+        # where a card ran the window
+        assert "search_filters_ms" in out["metrics"]
+        assert not set(out["metrics"]) & set(DEVICE_ONLY)
     else:
         assert {"queries_per_s", "batch_p95_ms", "setup_s"} == set(out["metrics"])
 
@@ -305,6 +309,11 @@ def test_benchmark_alone_fails(tmp_path):
     assert "{" not in p.stdout
 
 
+# per-layer metrics that only the card's trace gives
+DEVICE_ONLY = ("encoder_ms", "melspec_ms", "stage3_ms", "stage3_roofline",
+               "host_prep_idle_pct", "device_idle_pct", "align_reduce_roofline",
+               "serve_mfu")
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
@@ -342,14 +351,34 @@ def test_benchmark_json_names_its_files():
     cells = {w["name"] for w in b["workloads"]}
     for m in b["per_layer"]:
         assert m["moves"] in e2e
-        assert set(m.get("workloads", cells)) <= cells
+        # a list, so that a cell added later does not have to report it
+        assert m.get("workloads") and set(m["workloads"]) <= cells, m["name"]
 
 
 @pytest.mark.cuda
-def test_tiny_run_on_the_card():
+@pytest.mark.parametrize("traffic,config,like", [
+    ("tiny-rows", "tiny-d16", None),
+    ("tiny-audio", "tiny-d16", "d128-10k-audio"),
+    ("tiny-rows19", "tiny-d32-30k", "d64-100k-emb-noisy")])
+def test_tiny_run_on_the_card(traffic, config, like):
+    """A traced run on the card: every per-layer metric that the cell it
+    stands for lists is in the line, no program span reads as device work,
+    and nearly all device time lies under a program span."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    out = run.run_cell(tiny_cell("tiny-rows"), SEED, 0.5, True, torch.device("cuda", 0),
+    out = run.run_cell(tiny_cell(traffic, config), SEED, 1.0, True, torch.device("cuda", 0),
                        time.time())
     assert out["correct"] is True
     assert out["device"]["busy_s"] > 0
+    info = out["info"]
+    spans = info["program_spans"]
+    assert not set(spans) & {n for n, _ in out["breakdown"]["device_ops"]}
+    device_s = sum(s["device_s"] for s in spans.values())
+    assert info["program_unattributed_s"] <= 0.01 * (device_s + info["program_unattributed_s"])
+    if like is not None:
+        listed = {m["name"] for m in run.metrics_of(bench(), like)[1]}
+        assert listed <= set(out["metrics"])
+    for name, m in out["metrics"].items():
+        assert np.isfinite(m["value"]), name
+        if name.endswith("_roofline") or "mfu" in name:
+            assert 0 < m["value"] <= 100, name

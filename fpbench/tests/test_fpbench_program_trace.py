@@ -1,12 +1,16 @@
 """``fpbench/program_trace.py`` on synthetic kineto-like events: which
 program span a kernel, a copy or an idle gap is put down to, what stays
-unattributed, and the per-layer numbers read from it.  And the harness's
-``--trace 0`` run leaves the program's tracer off."""
+unattributed, and the per-layer numbers read from it; ``fpbench/trace.py``
+not counting the profiler's copies of program ranges as the card's work.
+And the harness's runs leave the program's tracer off."""
+
+import dataclasses
+import types
 
 import pytest
 import torch
 
-from fpbench import flops, program_trace
+from fpbench import flops, program_trace, run, trace
 from fpbench.tests.test_fpbench_harness import tiny_cell, tiny_run
 from pfann_tpu_torch.utils import profiling
 from pfann_tpu_torch.utils.profiling import Record
@@ -153,15 +157,97 @@ def test_readings_are_none_without_a_trace_or_their_spans():
     assert program_trace.clock_gap_us(pt) is None
 
 
+def fake_prof(ev):
+    """What ``read_trace`` reads of a finished ``torch.profiler.profile``."""
+    results = types.SimpleNamespace(events=lambda: ev)
+    return types.SimpleNamespace(profiler=types.SimpleNamespace(kineto_results=results))
+
+
+@pytest.mark.parametrize("torch_had_activity_type", [True, False])
+def test_read_trace_skips_the_program_ranges_on_the_card(torch_had_activity_type):
+    """The profiler's copies of program ranges on the card's timeline are no
+    device work once ``read_trace`` has the program's span names; without
+    program spans it reads what it read before they existed."""
+    work = events(*launch(1, 400 * US, "align_reduce_wgmma", start=400 * US, dur=100 * US),
+                  *launch(2, 600 * US, "sort", start=700 * US, dur=50 * US))
+    copies = [Ev("screen.stage3", 300 * US, 500 * US, CUDA, "gpu_user_annotation", corr=2),
+              Ev("db.filters", 10 * US, 190 * US, CUDA, "gpu_user_annotation", corr=8)]
+    if not torch_had_activity_type:
+        work, copies = [e.old() for e in work], [e.old() for e in copies]
+    names = {r.name for r in RECS}
+    before = trace.read_trace(fake_prof(work))
+    assert before.busy_s == pytest.approx(150e-6)
+    assert trace.read_trace(fake_prof(work), names) == before
+    got = trace.read_trace(fake_prof(work + copies), names)
+    # the same reading; only the list of device-side kinds seen grows
+    assert dataclasses.replace(got, activities=before.activities) == before
+    assert not names & {n for n, _ in got.device_ops}
+    if not torch_had_activity_type:
+        # what the spans' names are needed for: by kind alone, the copies
+        # read as kernels
+        assert trace.read_trace(fake_prof(work + copies)).busy_s > before.busy_s
+
+
+def test_idle_gap_outside_program_spans_takes_the_benchmark_span():
+    # db.filters [10, 200) us under search [0, 1000); busy [300, 400) and
+    # [700, 1500): the gap [0, 300) has its midpoint under db.filters,
+    # [400, 700) under search alone, [1500, 2000) under no span
+    recs = [rec("db.filters", 10, 200)]
+    ev = events(*launch(1, 250 * US, start=300 * US, dur=100 * US),
+                *launch(2, 600 * US, start=700 * US, dur=800 * US))
+    pt = program_trace.read_events(ev, recs)
+    assert pt.idle_by_span == pytest.approx(
+        {"db.filters": 300e-6, "search": 300e-6, trace.HOST_IDLE: 500e-6})
+    assert [n for n, _ in pt.idle_gaps] == [trace.HOST_IDLE, "db.filters", "search"]
+    # with no program spans the gaps carry the names read_trace gives them
+    assert (program_trace.read_events(ev, []).idle_gaps
+            == trace.read_trace(fake_prof(ev)).idle_gaps)
+
+
+CFG = {"n_songs": 100, "song_rows": 120, "model": {"d": 64}}
+TR = {"query_rows": 19}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("encoder_ms", 0.1), ("melspec_ms", 0.015), ("search_filters_ms", 0.095),
+    ("stage3_ms", 0.05),
+    ("stage3_roofline", 100 * flops.align_bound_s(19, 64, 2, 12000, 100) / 100e-6),
+    # the gap [0, 350) us under db.filters, of a 2,000 us window
+    ("host_prep_idle_pct", 17.5)])
+def test_program_metric_readers(name, want):
+    """Each reader of the program's spans reads its helper on the traced
+    window, and nothing from a run without a program trace."""
+    recs = RECS + [rec("embedder.melspec", 1000, 1100), rec("embedder.encoder", 1100, 1500)]
+    ev = events(*launch(1, 340 * US, "align_reduce_wgmma", start=350 * US, dur=100 * US),
+                *launch(2, 1050 * US, "mel_gemm", start=1060 * US, dur=30 * US),
+                *launch(3, 1200 * US, "conv", start=1200 * US, dur=200 * US),
+                *launch(4, 1600 * US, "harness_op", start=1610 * US, dur=390 * US))
+    pt = program_trace.read_events(ev, recs)
+    cell = types.SimpleNamespace(config=CFG, traffic=TR)
+    got = run.read_metric(name, types.SimpleNamespace(program=pt, batches=2, cell=cell))
+    assert got == pytest.approx(want)
+    assert run.read_metric(name, types.SimpleNamespace(program=None, batches=2, cell=cell)) is None
+
+
 def test_a_trace_needs_its_window():
     with pytest.raises(RuntimeError):
         program_trace.read_events([Ev("search", 0, 10)], RECS)
 
 
+@pytest.mark.parametrize("traced", [False, True])
 @pytest.mark.parametrize("traffic", ["tiny-audio", "tiny-rows"])
-def test_benchmark_run_leaves_the_program_tracer_off(traffic):
+def test_benchmark_run_leaves_the_program_tracer_off(traffic, traced):
+    """A run leaves the tracer off; a ``--trace 0`` run records no span, a
+    ``--trace 1`` run those of its window, and reads them."""
     profiling.enable()
     profiling.disable()
-    out = tiny_run(tiny_cell(traffic), trace=False)
+    out = tiny_run(tiny_cell(traffic), trace=traced)
     assert out["correct"] is True
-    assert profiling.records() == [] and profiling.span("x") is profiling.span("y")
+    assert profiling.span("x") is profiling.span("y")
+    if traced:
+        info = out["info"]
+        assert profiling.records() and info["program_dropped"] == 0
+        assert info["program_spans"]["db.query_top1_batch"]["calls"] == info["batches"]
+        assert ("embedder.embed_songs" in info["program_spans"]) == (traffic == "tiny-audio")
+    else:
+        assert profiling.records() == []

@@ -64,20 +64,23 @@ def _union(intervals):
     return out
 
 
-def read_trace(prof) -> Trace:
+def read_trace(prof, program_spans=()) -> Trace:
     """The window's device busy time, kernel totals and idle gaps from a
-    finished profiler."""
+    finished profiler.  ``program_spans`` names the program's own spans
+    that the window recorded: they are profiler ranges too, never the
+    card's work."""
     events = prof.profiler.kineto_results.events()
+    ranges = set(SPAN_NAMES).union(program_spans)
     window = None
     spans, device, seen = [], [], set()
     cuda = torch.autograd.DeviceType.CUDA
     for e in events:
         name = e.name()
-        # older torch has no activity_type(); there a range of the
-        # benchmark's own (a span, copied to the device's timeline too) is
-        # known by its name
+        # older torch has no activity_type(); there a range (the
+        # benchmark's span or the program's, which the profiler copies onto
+        # the device's timeline too) is known by its name
         kind = e.activity_type() if hasattr(e, "activity_type") else (
-            "annotation" if name in SPAN_NAMES else "gpu_memcpy" if name.startswith("Memcpy")
+            "annotation" if name in ranges else "gpu_memcpy" if name.startswith("Memcpy")
             else "gpu_memset" if name.startswith("Memset") else "kernel")
         start, end = e.start_ns(), e.start_ns() + e.duration_ns()
         if e.device_type() == cuda:
