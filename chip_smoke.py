@@ -189,6 +189,16 @@ Phases, in order; any failure raises and the script exits nonzero:
      matcher's topk-fallback log line; the 10 s sets' bf16 launches), and
      the d=128 exhaustive launch of one 10 s set, held to the plain
      version in this process.
+ 16. FpNetwork's norm-and-activation kernel (models/norm_act.py,
+     csrc/norm_act.cu): built (a spill fails), then at the audio batch's
+     16 norm volumes (4,864 segments of the d=128 encoder, bf16, ReLU
+     after the norm) held to its plain version (one bf16 ulp, or 1e-5
+     near 0) and timed beside it and beside its bound (4 bytes an element
+     and the affine once, over the memory rate), and the batch's sum of
+     the plan's times printed against its bound.  Its launches on the main
+     path are phase 5's builder and matcher runs (16 a forward); phase 5
+     fails if they launched none.  tools/torch_kernel_sweep.py --norm-act
+     times every form and tile the source builds.
 
 Phases 3, 4, 6, 7 (f1) and 11 print each kernel's time beside its bound (the
 larger of the operations over the card's published dense peak for their
@@ -280,6 +290,7 @@ from pfann_tpu_torch.landmark.device import (  # noqa: E402
     log_spectrogram,
     peak_mask,
 )
+from pfann_tpu_torch.models import norm_act  # noqa: E402
 from pfann_tpu_torch.models.fp_network import build_fp_network  # noqa: E402
 from pfann_tpu_torch.ops.specaug import SpecAugment  # noqa: E402
 from pfann_tpu_torch.parallel import ShardedDatabase  # noqa: E402
@@ -2659,6 +2670,77 @@ def flagship_on_card(dev, card, root, r15):
     return err
 
 
+def norm_close_ulps(got, want, atol=1e-5, chunk=256):
+    """Largest |got - want| of two bf16 tensors [n, ...] in units of the
+    larger of want's bf16 ulp and atol (1.0: one ulp)."""
+    worst = 0.0
+    for i in range(0, got.shape[0], chunk):
+        g, w = got[i : i + chunk].float(), want[i : i + chunk].float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+        worst = max(worst, float(((g - w).abs() / ulp.clamp_min(atol)).max()))
+    return worst
+
+
+def norm_act_on_card(dev, card, n=4864, reps=5):
+    """Phase 16: the norm_act kernel at the audio batch's 16 volumes (n
+    segments of the d=128 encoder, bf16, ReLU after the norm) against its
+    plain version, timed beside it and its bound.  Returns {"volumes":
+    [...], "ms": the plan's sum, "bound_ms", "plain_ms", "max_ulps"}."""
+    phase(16, "norm_act: FpNetwork's norm and activation, kernel vs plain at the audio "
+              "batch's 16 norm volumes (%d segments, bf16)" % n)
+    tm = time.time()
+    lib = norm_act.build()
+    print("built %s in %.2f s (cached=%s)  %s" % (
+        os.path.relpath(lib, REPO), time.time() - tm, norm_act.build_info["cached"], card))
+    report, _ = ptxas_report(norm_act.build_info.get("log", ""))
+    for name, line in report:
+        print("  ptxas %-40s %s" % (name, line))
+    spills = [(nm, ln) for nm, ln in report if re.search(r"[1-9]\d* bytes spill", ln)]
+    cfg = {"sample_rate": 8000, "stft_hop": 256, "n_mels": 256, "segment_size": 1,
+           "model": {"d": 128, "h": 1024, "u": 32, "fuller": True}}
+    shapes = [ln.shape for blk in build_fp_network(cfg).f.blocks for ln in (blk.ln1, blk.ln2)]
+    out = dict(volumes=[], ms=0.0, bound_ms=0.0, plain_ms=0.0, max_ulps=0.0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for shape in shapes:
+        V = int(np.prod(shape))
+        w = 1 + 0.2 * torch.randn(shape, generator=gen, device=dev)
+        b = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        x = torch.randn((n, *shape), generator=gen, device=dev, dtype=torch.bfloat16) * 1.7 + 0.3
+        want = norm_act.norm_act_reference(x, w, b, 1e-5, "ReLU", True)
+        got = norm_act.norm_act(x.clone(), w, b, 1e-5, "ReLU", True)
+        ulps = norm_close_ulps(got, want)
+        if ulps > 1.0:
+            raise AssertionError("norm_act at %s: %.2f ulps from the plain version"
+                                 % (shape, ulps))
+        del want, got
+        y = x.clone()
+        k_ms = time_ms(lambda: norm_act.norm_act(y, w, b, 1e-5, "ReLU", True), reps)
+        p_ms = time_ms(lambda: norm_act.norm_act_reference(x, w, b, 1e-5, "ReLU", True),
+                       max(1, reps // 2))
+        bound_ms = (n * V * 4 + V * 8) / HBM_BYTES_S * 1e3
+        plan = norm_act.plan(V, 2)
+        row = dict(shape=list(shape), V=V, plan=plan, ms=k_ms, plain_ms=p_ms,
+                   bound_ms=bound_ms, ulps=ulps)
+        print("  %-16s V %7d: kernel %8.3f ms  plain %8.3f ms  bound %7.3f ms (bytes)  "
+              "%5.1f%% of bound  %.2f ulps  plan %s  %s" % (
+                  tuple(shape), V, k_ms, p_ms, bound_ms, 100 * bound_ms / k_ms, ulps, plan,
+                  card), flush=True)
+        out["volumes"].append(row)
+        out["ms"] += k_ms
+        out["plain_ms"] += p_ms
+        out["bound_ms"] += bound_ms
+        out["max_ulps"] = max(out["max_ulps"], ulps)
+        del x, y
+    torch.cuda.empty_cache()
+    print("  norm_act over the batch's 16 volumes: kernel %.3f ms, plain %.3f ms, bound %.3f ms "
+          "(%.1f%% of bound), max %.2f ulps  %s" % (
+              out["ms"], out["plain_ms"], out["bound_ms"], 100 * out["bound_ms"] / out["ms"],
+              out["max_ulps"], card), flush=True)
+    if spills:  # after the timings, which show what a spill costs
+        raise AssertionError("norm_act instantiations spill: %s" % spills)
+    return out
+
+
 def csv_rows(path):
     with open(path) as fh:
         return list(csv.reader(fh))
@@ -2894,6 +2976,7 @@ def main() -> None:
         res1 = os.path.join(tmp, "out", "result_top1.txt")
 
         reset_launch_counts()
+        norm_act.launches = 0
         tm = time.time()
         builder.main(["builder", lst, db_dir, model_dir, "--device", "cuda"])
         build_s = time.time() - tm
@@ -2902,11 +2985,15 @@ def main() -> None:
         matcher.main(["matcher", qlist, db_dir, res1, "--top1", "--device", "cuda"])
         torch.cuda.synchronize()
         match_s = time.time() - tm
-        launches = record("5: builder + matcher x2, align engine")["bf16"]
-        print("  builder %.2f s, matcher x2 %.2f s, kernel launches %d  %s" % (
-            build_s, match_s, launches, card))
+        path5 = record("5: builder + matcher x2, align engine")
+        path5["norm_act"] = norm_act.launches
+        launches = path5["bf16"]
+        print("  builder %.2f s, matcher x2 %.2f s, kernel launches %d, norm_act launches %d"
+              "  %s" % (build_s, match_s, launches, path5["norm_act"], card))
         if launches <= 0:
             raise AssertionError("the main path never launched the kernel")
+        if path5["norm_act"] <= 0:
+            raise AssertionError("the main path never launched the norm_act kernel")
 
         for name in ("embeddings", "landmarkKey", "songList.txt", "configs.json",
                      "model.msgpack", "index_meta.json"):
@@ -3012,6 +3099,7 @@ def main() -> None:
             err14, r15 = scale30k_on_card(dev, card, root12, corpora)
             err15 = flagship_on_card(dev, card, root12, r15)
     max_err = max(max_err, errs10["bf16"], err11, errs12["bf16"], err14, err15)
+    na16 = norm_act_on_card(dev, card)
 
     # every driven path's launches, phases 5-7 (0 where a path runs none)
     launches = sum(p["bf16"] for p in PATHS.values())
@@ -3066,6 +3154,19 @@ def main() -> None:
         "bound_ms": f1[1024]["bound"][0],
         "bound_by": f1[1024]["bound"][1],
         "library_ms": f1[1024]["library_ms"],
+    }, {
+        "name": "norm_act",
+        "route": "cuda",
+        "source": "pfann_tpu_torch/csrc/norm_act.cu",
+        "replaces": None,
+        "launches": sum(p.get("norm_act", 0) for p in PATHS.values()),
+        "launches_by_path": {k: v["norm_act"] for k, v in PATHS.items() if "norm_act" in v},
+        "max_ulps": na16["max_ulps"],
+        "ms": na16["ms"],
+        "plain_ms": na16["plain_ms"],
+        "bound_ms": na16["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

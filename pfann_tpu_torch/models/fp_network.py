@@ -10,6 +10,12 @@ bf16 is explicit, as flax's ``dtype=`` is, not autocast: every conv and
 projector einsum casts its input and its float32 weights to
 ``compute_dtype``; LayerNorm computes its statistics and affine in float32
 and casts back; the final embedding is float32.  Parameters stay float32.
+
+A norm and its activation that need no gradient (grad mode off, or
+neither the input nor the norm's parameters require one: serving,
+validation) run as ``models/norm_act.py``'s ``norm_act`` over the conv's
+output in place: one kernel on the card, its plain version on the CPU;
+with autograd (training steps, saliency) they run as the torch ops below.
 """
 
 from __future__ import annotations
@@ -20,20 +26,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pfann_tpu_torch.models.norm_act import ACTIVATIONS, norm_act
+
 
 def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
     """Keras-style SAME padding (asymmetric)."""
     pad = (size - 1) // s * s + k - size
     return (pad // 2, pad - pad // 2)
-
-
-_ACTIVATIONS = {"ReLU": F.relu, "ELU": F.elu}
-
-
-def _activation(name: str):
-    if name not in _ACTIVATIONS:
-        raise KeyError(name)
-    return _ACTIVATIONS[name]
 
 
 class FullLayerNorm(nn.Module):
@@ -52,6 +51,13 @@ class FullLayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _needs_grad(ln: FullLayerNorm, x: torch.Tensor) -> bool:
+    """Whether autograd would record the norm: grad mode on, and x or the
+    norm's parameters require a gradient."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or ln.weight.requires_grad or ln.bias.requires_grad)
+
+
 class SeparableConv(nn.Module):
     """One encoder block; input/output [B, C, F, T]."""
 
@@ -63,7 +69,9 @@ class SeparableConv(nn.Module):
         super().__init__()
         out_T = (in_T - 1) // stride_t + 1
         out_F = (in_F - 1) // stride_f + 1
-        self.act = _activation(activation)
+        if activation not in ACTIVATIONS:
+            raise KeyError(activation)
+        self.activation = activation
         self.relu_after_bn = relu_after_bn
         self.pad_t = _same_pad(in_T, k, stride_t)
         self.pad_f = _same_pad(in_F, k, stride_f)
@@ -90,7 +98,12 @@ class SeparableConv(nn.Module):
         return F.conv2d(F.pad(x, pad), w, b, stride=conv.stride, groups=conv.groups)
 
     def _norm_act(self, ln: FullLayerNorm, x: torch.Tensor) -> torch.Tensor:
-        return self.act(ln(x)) if self.relu_after_bn else ln(self.act(x))
+        if not _needs_grad(ln, x):
+            # x is the conv's output, which nothing else reads
+            return norm_act(x, ln.weight, ln.bias, ln.eps, self.activation,
+                            self.relu_after_bn)
+        act = ACTIVATIONS[self.activation]
+        return act(ln(x)) if self.relu_after_bn else ln(act(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm_act(self.ln1, self._conv(self.conv1, x, self.pad_t))

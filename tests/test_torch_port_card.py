@@ -6,7 +6,10 @@ and one traced query an engine, whose kernels (the align-reduce kernel's
 among them) fpbench's reading puts down to the program's spans; and the
 single-card top-1 path at the benchmark's d = 64 shapes, launched at the
 queries' own 19 windows against the bucketed 24, with the kernel at
-stage 3's shape held to the plain version on the CPU.
+stage 3's shape held to the plain version on the CPU; and FpNetwork's
+norm-and-activation kernel (models/norm_act.py) against its plain version
+on the card at every norm volume of two encoders, past 2^32 elements, and
+inside FpNetwork, with the paths that need autograd launching none.
 
 Like tests/test_torch_port_kernel.py this file imports no jax, so it runs
 on a machine with a card and no JAX package:
@@ -37,6 +40,7 @@ from pfann_tpu_torch.index.database import Database, write_index_meta
 from pfann_tpu_torch.index.embedder import Embedder
 from pfann_tpu_torch.index.screen import ScreenedAlignmentEngine, build_screen_layout
 from pfann_tpu_torch.index.search import TopkEngine
+from pfann_tpu_torch.models import norm_act as na
 from pfann_tpu_torch.models.fp_network import build_fp_network
 from pfann_tpu_torch.utils.checkpoint import save_model
 
@@ -471,3 +475,215 @@ def test_kernel_at_stage3_trimmed_shape_on_card(cuda_device):
     idx = (np.arange(n_pad) * R)[None, :, None] + ko[:, :, None] + np.arange(S)
     at = np.einsum("bnsd,bsd->bn", rows[idx], qt.float().cpu().numpy())
     np.testing.assert_allclose(at, pb, rtol=0, atol=BEST_ATOL)
+
+
+# ------------------------------------------------------------------ norm_act
+# FpNetwork's norm and activation as one kernel (models/norm_act.py), held to
+# its plain version (F.layer_norm of the f32 copy, the cast back, the
+# activation) run on the card.  bf16 outputs within one bf16 ulp of the
+# plain one (of the norm's value where ELU follows it), or within NORM_ATOL
+# near 0 (the two sum the statistics in other
+# orders, ~1e-6 of the volume's scale, which can move a value of a few
+# hundredths' worth by more than its ulp); f32 outputs within NORM_F32 of
+# the output's scale; the kernel's f32 mean within 1e-6 of the volume's scale
+# (sqrt(mean^2 + var)) and its rstd within 1e-6 relative, both of float64
+# statistics of the same input.
+NORM_ENCODERS = {
+    "d128": {"d": 128, "h": 1024, "u": 32, "fuller": True},
+    "n640d64": {"d": 64, "h": 1024, "u": 32, "fuller": False},
+}
+NORM_ATOL = 1e-5
+NORM_F32 = 1e-5
+STATS_RTOL = 1e-6
+
+
+def _norm_cfg(encoder, **model):
+    return dict(TINY_MODEL, model=dict(NORM_ENCODERS[encoder], **model))
+
+
+def _norm_shapes(encoder):
+    blocks = build_fp_network(_norm_cfg(encoder)).f.blocks
+    return [ln.shape for b in blocks for ln in (b.ln1, b.ln2)]
+
+
+def _bf16_ulp(t):
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _norm_close(got, want, scale, elu_after=False, chunk=256):
+    """bf16: within one ulp of ``want`` or NORM_ATOL; where ELU follows the
+    rounded norm, the ulp is the norm's (elu's input, log1p of a negative
+    output) plus the output's own: the two may round the norm to
+    neighbours, which ELU takes to outputs up to that far apart; f32: within
+    NORM_F32 * scale; in chunks of segments (the largest tensors are 5 GB)."""
+    for i in range(0, got.shape[0], chunk):
+        g, w = got[i : i + chunk].float(), want[i : i + chunk].float()
+        if got.dtype == torch.bfloat16:
+            tol = _bf16_ulp(w)
+            if elu_after:
+                tol = tol + _bf16_ulp(torch.where(w < 0, torch.log1p(w.clamp_min(-0.999)), w))
+            tol = tol.clamp_min(NORM_ATOL)
+        else:
+            tol = NORM_F32 * scale
+        bad = ((g - w).abs() > tol) & ~(g.isnan() & w.isnan())
+        assert not bool(bad.any()), (i, float((g - w).abs().max()), int(bad.sum()))
+
+
+def _stats64(x, eps, activation, relu_after_bn, chunk=256):
+    """float64 (mean, rstd, scale) of each segment of x (of act(x), rounded
+    to x's dtype, where the activation comes first)."""
+    out = []
+    for i in range(0, x.shape[0], chunk):
+        a = x[i : i + chunk]
+        if not relu_after_bn:
+            a = na.ACTIVATIONS[activation](a)
+        a = a.reshape(a.shape[0], -1).double()
+        mean, var = a.mean(1), a.var(1, unbiased=False)
+        out.append(torch.stack([mean, (var + eps).rsqrt(), (mean.square() + var).sqrt()], 1))
+    return torch.cat(out)
+
+
+def _check_norm(x, w, b, activation, relu_after_bn, p=None):
+    """The kernel (the plan's, or ``p``) against the plain version and
+    float64 statistics; returns the kernel's output."""
+    want = na.norm_act_reference(x, w, b, 1e-5, activation, relu_after_bn)
+    got = x.clone()
+    stats = torch.empty(x.shape[0], 2, device=x.device)
+    plan = p or na.plan(x[0].numel(), x.element_size())
+    na._launch(got, w, b, 1e-5, activation, relu_after_bn, plan, stats)
+    scale = float(w.abs().max() * 6 + b.abs().max())
+    _norm_close(got, want, scale, elu_after=activation == "ELU" and relu_after_bn)
+    ref = _stats64(x, 1e-5, activation, relu_after_bn)
+    st = stats.double()
+    mean_err = ((st[:, 0] - ref[:, 0]).abs() / ref[:, 2].clamp_min(1e-30)).max()
+    rstd_err = ((st[:, 1] - ref[:, 1]).abs() / ref[:, 1]).max()
+    assert mean_err <= STATS_RTOL and rstd_err <= STATS_RTOL, (plan, mean_err, rstd_err)
+    return got
+
+
+def _affine(shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (1 + 0.2 * torch.randn(shape, generator=g, device=dev),
+            0.1 * torch.randn(shape, generator=g, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4864])
+@pytest.mark.parametrize("encoder", list(NORM_ENCODERS))
+def test_norm_act_kernel_against_plain(cuda_device, encoder, n):
+    """All 16 norm volumes of the encoder, ReLU and ELU, the activation
+    after and before the norm, bf16 (and f32 for n < 4,864) at n segments:
+    the plan's kernel against the plain version on the card; norm_act
+    counts one launch a call and equals the checked output."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    for i, shape in enumerate(_norm_shapes(encoder)):
+        w, b = _affine(shape, cuda_device, i)
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if n < 4864 else ()):
+            x = (torch.randn((n, *shape), generator=g, device=cuda_device, dtype=dtype) * 1.7
+                 + 0.3)
+            for activation in ("ReLU", "ELU"):
+                for relu_after_bn in (True, False):
+                    got = _check_norm(x, w, b, activation, relu_after_bn)
+                    before = na.launches
+                    y = x.clone()
+                    assert na.norm_act(y, w, b, 1e-5, activation, relu_after_bn) is y
+                    assert na.launches == before + 1
+                    assert torch.equal(y, got)
+            del x, got, y
+
+
+@pytest.mark.cuda
+def test_norm_act_every_form_on_card(cuda_device):
+    """Every form and tile the source builds gives the plain version's
+    output, in bf16 and f32 at 37 segments (whole and partial groups of a
+    tile's segments and of the split form's 16 an apply block): each rows
+    tile whose block holds the segment, and the split form.  A segment that
+    is not whole 16-byte vectors, or an unaligned view, is refused before
+    any launch."""
+    for shape in ((128, 256, 16), (256, 32, 4), (256, 32, 2), (256, 16, 2)):
+        w, b = _affine(shape, cuda_device, 0)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((37, *shape), device=cuda_device, dtype=dtype)
+            nv = x[0].numel() * x.element_size() // 16
+            plans = [dict(form="rows", vpt=vpt, G=max(32, na._pow2(-(-nv // vpt))), segs=segs)
+                     for vpt, segs in na.ROWS_TILES if nv <= na.THREADS * vpt]
+            for p in plans + [dict(form="split")]:
+                for activation, relu_after_bn in (("ReLU", True), ("ELU", False)):
+                    _check_norm(x, w, b, activation, relu_after_bn, p)
+    before = na.launches
+    for shape in ((3, 5, 7), (33, 65, 17), (1, 1, 1)):
+        w, b = _affine(shape, cuda_device, 1)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((9, *shape), device=cuda_device, dtype=dtype)
+            with pytest.raises(ValueError, match="16-byte"):
+                na.norm_act(x, w, b, 1e-5, "ReLU", True)
+    shape = (16, 8, 8)
+    w, b = _affine(shape, cuda_device, 2)
+    buf = torch.randn(5 * 1024 + 1, device=cuda_device, dtype=torch.bfloat16)
+    x = buf[1:].view(5, *shape)  # 2 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        na.norm_act(x, w, b, 1e-5, "ReLU", True)
+    assert na.launches == before
+
+
+@pytest.mark.cuda
+def test_norm_act_past_2_32_elements_on_card(cuda_device):
+    """Block 0's ln1 volume at 8,228 segments (4.3e9 elements, past 2^32):
+    the kernel in one call against the plain version in calls of 1,024
+    segments."""
+    shape, n = (128, 256, 16), 8228
+    w, b = _affine(shape, cuda_device, 3)
+    x = torch.randn((n, *shape), device=cuda_device, dtype=torch.bfloat16)
+    got = na.norm_act(x.clone(), w, b, 1e-5, "ReLU", True)
+    for i in range(0, n, 1024):
+        want = na.norm_act_reference(x[i : i + 1024], w, b, 1e-5, "ReLU", True)
+        _norm_close(got[i : i + 1024], want, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", list(NORM_ENCODERS))
+def test_norm_act_fp_network_on_card(cuda_device, encoder):
+    """FpNetwork in bf16 on the card: under inference_mode every norm is a
+    kernel launch (16); with autograd none is; the embeddings agree to a
+    cosine of 0.9999 per row."""
+    torch.manual_seed(0)
+    model = build_fp_network(_norm_cfg(encoder), compute_dtype=torch.bfloat16).to(cuda_device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".ln" in name:
+                p.copy_((1.0 if name.endswith("weight") else 0.0) + 0.1 * torch.randn_like(p))
+    mel = torch.randn(64, 256, 32, device=cuda_device) * 2 - 4
+    before = na.launches
+    with torch.inference_mode():
+        zk = model(mel)
+    assert na.launches == before + 16
+    zt = model(mel.clone().requires_grad_(True)).detach()
+    assert na.launches == before + 16
+    cos = torch.nn.functional.cosine_similarity(zk, zt, dim=1)
+    assert float(cos.min()) >= 0.9999, cos.min()
+
+
+@pytest.mark.cuda
+def test_norm_act_paths_on_card(cuda_device, tmp_path):
+    """The Trainer's step and embed_with_saliency launch no norm_act
+    kernel on the card; Embedder.embed and the Trainer's validation
+    embedding launch 16 a call."""
+    from pfann_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(dict(TRAIN_CFG, optimizer="adam"), compute_dtype=torch.bfloat16,
+                 device=cuda_device)
+    tr.init_state()
+    x = torch.randn(16, 256, 32, device=cuda_device)
+    before = na.launches
+    tr.train_step(x, tr.specaug.draw(torch.Generator().manual_seed(0), 256, 32))
+    assert na.launches == before
+    tr._embed_all([x])
+    assert na.launches == before + 16
+    path = str(tmp_path / "model.msgpack")
+    save_model(path, build_fp_network(TINY_MODEL).state_dict())
+    emb = Embedder(TINY_MODEL, path, cuda_device, chunk=8)
+    segs = np.random.default_rng(6).standard_normal((5, 8000)).astype(np.float32) * 0.1
+    emb.embed_with_saliency(segs)
+    assert na.launches == before + 16
+    emb.embed(segs)
+    assert na.launches == before + 32

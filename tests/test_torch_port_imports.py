@@ -84,6 +84,7 @@ def test_port_modules_import_without_pfann_tpu_or_jax():
                      "pfann_tpu_torch.parallel", "pfann_tpu_torch.parallel.mesh",
                      "pfann_tpu_torch.parallel.sharded_search",
                      "pfann_tpu_torch.utils.profiling",
+                     "pfann_tpu_torch.models.norm_act",
                      "pfann_tpu_torch.genall", "pfann_tpu_torch.testall",
                      "pfann_tpu_torch.utils.harness",
                      "pfann_tpu_torch.tools.run_synth_pipeline",

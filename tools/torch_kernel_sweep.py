@@ -4,6 +4,7 @@
                                        [--only SUBSTRING[,SUBSTRING...]]
                                        [--shapes SUBSTRING[,...]]
                                        [--root DIR] [--compare DIR]
+    python tools/torch_kernel_sweep.py --norm-act [--out FILE.json] [--reps N]
 
 A development tool of pfann_tpu_torch, kept outside the package: it swaps
 ``align_kernel.tile_plan`` for a plan with some fields overridden while it
@@ -43,6 +44,15 @@ variant) with the card's name and power limit, the launch's bound (the
 larger of its operations at the dtype's dense peak and its bytes, the
 layout and queries in and the per-song outputs out, at HBM3's) and the
 share of it the time reaches, and writes them as JSON.
+
+``--norm-act`` times FpNetwork's norm-and-activation kernel
+(``models/norm_act.py``) instead: at the audio batch's 16 norm volumes
+(4,864 segments of the d = 128 encoder, bf16, ReLU after the norm), every
+form and tile the source builds (each rows tile whose block holds the
+segment with no thread idle, and the split form), each held to the plan's
+output (one bf16 ulp, or 1e-5 near 0) before it is timed, beside the
+kernel's bound (4 bytes an element and the affine once, at HBM3's rate);
+the plan's own form is marked.
 """
 
 from __future__ import annotations
@@ -217,6 +227,56 @@ def run(args) -> list:
     return rows
 
 
+def run_norm_act(args, n=4864) -> list:
+    sys.path.insert(0, HERE)
+    import torch
+
+    from pfann_tpu_torch.models import norm_act as na
+    from pfann_tpu_torch.models.fp_network import build_fp_network
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_sweep: no CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cfg = {"sample_rate": 8000, "stft_hop": 256, "n_mels": 256, "segment_size": 1,
+           "model": {"d": 128, "h": 1024, "u": 32, "fuller": True}}
+    shapes = [ln.shape for blk in build_fp_network(cfg).f.blocks for ln in (blk.ln1, blk.ln2)]
+    rows = []
+    for shape in shapes:
+        V = int(torch.Size(shape).numel())
+        w = 1 + 0.2 * torch.randn(shape, generator=gen, device=dev)
+        b = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        x = torch.randn((n, *shape), generator=gen, device=dev, dtype=torch.bfloat16)
+        nv, chosen = V // 8, na.plan(V, 2)
+        forms = [dict(form="rows", vpt=vpt, G=max(32, na._pow2(-(-nv // vpt))), segs=segs)
+                 for vpt, segs in na.ROWS_TILES]
+        forms = [p for p in forms if p["G"] <= na.THREADS
+                 and (p["G"] == 32 or (p["G"] // 2) * p["vpt"] < nv)] + [dict(form="split")]
+        want = na.norm_act(x.clone(), w, b, 1e-5, "ReLU", True).float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+        tol = ulp.clamp_min_(1e-5)
+        del ulp
+        y = x.clone()
+        bound = (n * V * 4 + V * 8) / HBM_BYTES_S * 1e3
+        for p in forms:
+            y.copy_(x)
+            na._launch(y, w, b, 1e-5, "ReLU", True, p)
+            assert bool(((y.float() - want).abs() <= tol).all()), (shape, p)
+            ms = _time_ms(torch, lambda: na._launch(y, w, b, 1e-5, "ReLU", True, p), args.reps)
+            row = dict(shape=list(shape), V=V, form=p, plan=p == chosen, ms=ms, bound_ms=bound,
+                       share=bound / ms, card=card)
+            rows.append(row)
+            print("%-16s V %7d  %-52s %8.3f ms  bound %.3f ms (%.1f%%)%s  [%s]" % (
+                tuple(shape), V, json.dumps(p), ms, bound, 100.0 * bound / ms,
+                "  plan" if row["plan"] else "", card), flush=True)
+        del x, y, want, tol
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
@@ -230,8 +290,12 @@ def main(argv=None) -> None:
     ap.add_argument("--compare", default=None,
                     help="another tree: its default plans against this tree's, "
                          "other, this, this, other")
+    ap.add_argument("--norm-act", action="store_true",
+                    help="time the norm-and-activation kernel's forms instead")
     args = ap.parse_args(argv)
-    if args.compare:
+    if args.norm_act:
+        rows = run_norm_act(args)
+    elif args.compare:
         rows = []
         for root in (args.compare, HERE, HERE, args.compare):
             out = subprocess.run(
